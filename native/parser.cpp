@@ -1,6 +1,6 @@
 // Native .scn scene parser -> JSON.
 //
-// TPU-native counterpart of the reference's host-side C++ parser
+// Native counterpart of the reference's host-side C++ parser
 // (`parseScene`, reference src/scene.cpp:12-227): same grammar, same
 // semantics as the Python parser in skele_raytracer_tpu/scene/parser.py
 // (the semantic source of truth; the two are cross-checked by

@@ -1,4 +1,4 @@
-"""Command-line driver — the reference CLI's surface, TPU-native behind it.
+"""Command-line interface — the reference CLI's surface, JAX behind it.
 
 The reference parses 10 flags with a manual strcmp loop (reference
 src/main.cpp:230-413): --path --output --width --height --fov --gillum
@@ -6,7 +6,7 @@ src/main.cpp:230-413): --path --output --width --height --fov --gillum
 with the same semantics (e.g. `--gillum N` both enables Monte-Carlo GI and
 sets the path count; `--shadow` is a bare flag; CLI width/height clobber
 the scene file's film_resolution exactly as the reference does,
-src/main.cpp:394-395) plus TPU-era additions:
+src/main.cpp:394-395) plus additions:
 
   --mode parity|clean   bug-for-bug reachable reference semantics vs the
                         intended behavior (reflections, lit triangles,
@@ -36,7 +36,7 @@ from skele_raytracer_tpu.config import CLEAN, PARITY, RenderConfig
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="skele-raytracer-tpu",
-        description="TPU-native differentiable ray tracer "
+        description="Differentiable JAX ray tracer "
         "(capabilities of lilinitsy/skele-raytracer)",
     )
     p.add_argument("--path", required=True, help="scene .scn file")
@@ -58,22 +58,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="shard rays over all devices (default)")
     p.add_argument("--no-mesh", dest="mesh", action="store_false")
     p.add_argument("--chunk", type=int, default=1 << 16,
-                   help="ray-batch chunk size (HBM residency bound)")
+                   help="ray-batch chunk size (device-memory residency bound)")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a jax.profiler trace to DIR")
     p.add_argument("--backend", default="auto", choices=("auto", "jnp", "pallas"),
-                   help="hot-path backend: fused Pallas TPU kernels or pure "
-                   "jnp (auto = pallas on TPU)")
-    # Progressive/restartable rendering — the TPU-era analog of the
+                   help="hot-path backend: the whole-frame Pallas Triton "
+                   "kernel (GPU only) or the pure-jnp XLA wavefront "
+                   "(auto = pallas on a GPU, jnp elsewhere)")
+    # Progressive/restartable rendering — the analog of the
     # reference's DEFAULT mode, the live SDL display that draws the frame
     # as it renders (reference src/main.cpp:108-227), plus the crash
     # recovery the reference lacks (a crash there loses the whole frame,
     # src/main.cpp:88-101).
     # Multi-frame serving (models/renderer.render_frames): K frames share
     # ONE device program, amortizing the fixed per-dispatch host<->device
-    # latency that dominates a single frame (bench.py sustained row:
-    # ~4.5x the single-dispatch throughput at K=16). The reference renders
-    # one frame per process (src/main.cpp:230-413).
+    # latency. The reference renders one frame per process
+    # (src/main.cpp:230-413).
     p.add_argument("--frames", type=int, default=None, metavar="K",
                    help="render K frames (seeds seed..seed+K-1) in one "
                    "device program; --output out.ppm writes out_000.ppm..")
@@ -117,19 +117,14 @@ def main(argv=None) -> int:
 
     import jax
 
-    try:  # persistent compile cache (first 1080p compile is minutes on TPU)
-        jax.config.update(
-            "jax_compilation_cache_dir",
-            os.path.join(os.path.expanduser("~"), ".cache", "skele_raytracer_tpu"),
-        )
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+    from skele_raytracer_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from skele_raytracer_tpu.models.renderer import render
     from skele_raytracer_tpu.parallel.api import make_mesh, render_sharded
     from skele_raytracer_tpu.scene.parser import parse_scene
-    from skele_raytracer_tpu.utils.image import write_ppm
+    from skele_raytracer_tpu.utils.image import write_png, write_ppm
 
     try:
         parsed = parse_scene(args.path)
@@ -139,16 +134,7 @@ def main(argv=None) -> int:
         print(f"scene file could not be opened: {args.path}", file=sys.stderr)
         return 1
     cfg = config_from_args(args, parsed.width, parsed.height)
-    backend = args.backend
-    if backend == "auto":
-        # On TPU every scene class has a winning Pallas path now: mesh
-        # scenes stream through the culled triangle kernels, sphere-only
-        # scenes through the whole-frame path-trace kernel
-        # (ops/pallas/pathtrace.py). Per-config dispatch inside the
-        # renderer falls back to jnp where a kernel doesn't apply. On CPU
-        # the kernels would run interpreted — keep XLA's fused jnp path.
-        backend = "pallas" if jax.default_backend() == "tpu" else "jnp"
-    cfg = cfg.replace(backend=backend)
+    cfg = cfg.replace(backend=args.backend).resolved()
     scene = parsed.to_scene(cfg.quirks)
 
     n_dev = len(jax.devices())
@@ -212,20 +198,9 @@ def main(argv=None) -> int:
 
     def write_one(path, frame):
         if path.endswith(".png"):
-            from skele_raytracer_tpu.utils.image import quantize
-
-            try:
-                from PIL import Image  # pillow ships with the baked torch stack
-
-                Image.fromarray(quantize(frame)).save(path)
-            except ImportError:
-                ppm = path[:-4] + ".ppm"
-                print(f"PIL unavailable; writing {ppm}", file=sys.stderr)
-                write_ppm(ppm, frame)
-                return ppm
+            write_png(path, frame)
         else:
             write_ppm(path, frame)
-        return path
 
     if args.frames:
         root, ext = os.path.splitext(args.output)

@@ -96,24 +96,20 @@ class RenderConfig:
     num_paths: int = 1  # --gillum
     use_shadows: bool = False
     quirks: Quirks = PARITY
-    # Integrator processes rays in fixed-size chunks (lax.map) to bound HBM
-    # residency; must be a multiple of 128 for TPU lane alignment.
+    # The XLA wavefront processes rays in fixed-size chunks (lax.map) to
+    # bound device-memory residency: each chunk's [rays, primitives]
+    # intermediates scale with it.
     rays_per_chunk: int = 1 << 16
-    # Hot-path backend: "jnp" (pure JAX, XLA-fused) or "pallas" (fused
-    # TPU kernels). The default "auto" resolves to pallas on TPU and jnp
-    # elsewhere at dispatch time (resolved()) so library users get the
-    # kernels without reading the docs; per-scene gates inside the
-    # renderer still fall back to jnp where no kernel applies.
+    # Hot-path backend: "jnp" (pure JAX, XLA-fused wavefront) or "pallas"
+    # (the whole-frame Triton path-trace kernel, ops/pallas/pathtrace.py).
+    # "auto" resolves to pallas on a GPU and jnp elsewhere at dispatch time
+    # (resolved()); per-scene gates inside the renderer still take the jnp
+    # path where the kernel does not apply.
     backend: str = "auto"
-    # Under backend="pallas", route shading through the fused
-    # intersect+shadow+shade megakernel (ops/pallas/megakernel.py) instead
-    # of the split pipeline (culled intersect kernel + culled shadow kernel
-    # + XLA-fused shading). The split pipeline wins on every measured
-    # dragon config (clean shadows 0.27 s vs 0.40 s; the megakernel pays
-    # its per-cluster shade bookkeeping on every loop iteration), so the
-    # fused kernel is opt-in — it remains the single-launch option and the
-    # custom_vjp hit-replay demonstrator.
-    fused_megakernel: bool = False
+    # Run the Pallas kernel in the Pallas interpreter instead of compiling
+    # it for the GPU. Tests set it on machines without a GPU; a pallas
+    # backend without it raises there rather than interpreting silently.
+    interpret: bool = False
 
     @property
     def samples_per_pixel(self) -> int:
@@ -128,15 +124,15 @@ class RenderConfig:
         return dataclasses.replace(self, **kw)
 
     def resolved(self) -> "RenderConfig":
-        """Resolve backend="auto" to the platform's winning path: Pallas
-        kernels on TPU, XLA-fused jnp elsewhere (the kernels would run
-        interpreted on CPU). Deterministic per process; called once at
-        the render dispatch entry (models/renderer.render_ids_chunked)."""
+        """Resolve backend="auto" to the platform's path: the Triton kernel
+        on a GPU, the XLA-fused jnp wavefront elsewhere. Deterministic per
+        process; called once at the render dispatch entry
+        (models/renderer.render_ids_chunked)."""
         if self.backend != "auto":
             return self
         import jax
 
-        pallas = jax.default_backend() == "tpu"
+        pallas = jax.default_backend() == "gpu"
         return self.replace(backend="pallas" if pallas else "jnp")
 
 

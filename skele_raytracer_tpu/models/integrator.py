@@ -1,4 +1,4 @@
-"""Wavefront integrators — the TPU-native re-design of `shade()`.
+"""Wavefront integrators — the batched re-design of `shade()`.
 
 The reference integrator (src/raytrace.h:139-227) is a per-pixel recursive
 function: nearest-hit scan, direct Blinn-Phong, and (for --gillum) a
@@ -57,76 +57,24 @@ def _fog_uniforms(scene, cfg, key, ids, bounce):
     return sampling.uniform(key, ids, bounce, sampling.PURPOSE_FOG, (L, F, 4, 2))
 
 
-def _use_megakernel(scene, cfg: RenderConfig) -> bool:
-    """True when the fused intersect+shadow+shade Pallas megakernel
-    (ops/pallas/megakernel.py) serves this config: pallas backend, a
-    clustered mesh, clean kernel-relevant semantics, no (real) fog."""
-    q = cfg.quirks
-    return (
-        cfg.backend == "pallas"
-        # Opt-in (cfg.fused_megakernel): the split pipeline — culled
-        # intersect + culled shadow + XLA-fused shading — beats the fused
-        # kernel on every measured dragon config (clean shadows 0.27 s vs
-        # 0.40 s, gillum16 via split 1.07 s vs 3.1 s; the megakernel pays
-        # its shade bookkeeping on every cluster iteration of every tile).
-        and cfg.fused_megakernel
-        and scene.has_triangles
-        and scene.clusters is not None
-        and scene.clusters.n_clusters > 4
-        and not scene.has_fog
-        and not (
-            q.near_clip_t_le_1
-            or q.reference_triangle_test
-            or q.triangles_shade_black
-            or q.sphere_only_shadows
-            or q.scalar_epsilon_offset
-        )
-    )
-
-
-def _shade_hit(scene, cfg: RenderConfig, key, o, d, ids, bounce, live=None):
+def _shade_hit(scene, cfg: RenderConfig, key, o, d, ids, bounce):
     """Nearest hit + direct illumination for a ray batch.
-
-    live: optional [R] f32 mask, 1.0 where the ray still carries path
-    throughput — dead rays' radiance is multiplied by zero downstream, so
-    the megakernel skips their intersection/shadow work entirely.
 
     Returns (hits, mat, direct [R,3], shade_mask [R] 1.0 where the ray hit
     something that shades — sphere always; triangle only in clean mode,
     miss_mask [R]).
     """
     quirks = cfg.quirks
-    if _use_megakernel(scene, cfg):
-        # One fused Pallas launch: intersect + per-light shadows + clean
-        # Blinn-Phong, differentiable via the custom_vjp replay. Hit
-        # point/normal/material for continuation rays are re-derived at
-        # O(rays) from the saved (kind, index).
-        from skele_raytracer_tpu.ops.geometry import Hits
-        from skele_raytracer_tpu.ops.pallas import megakernel as mk
-
-        direct, t, kind, index, _ = mk.fused_shade(
-            o, d, scene, cfg.use_shadows, live
-        )
-        point, normal = mk.hit_geometry(o, d, scene, kind, index, t)
-        hits = Hits(kind=kind, index=index, t=t, point=point, normal=normal)
-        mat = gather_material(scene, kind, index, quirks=quirks)
-        shades = kind > 0
-        miss = kind == 0
-        return hits, mat, direct, shades, miss
-    hits = intersect(o, d, scene, quirks=quirks, backend=cfg.backend, live=live)
+    hits = intersect(o, d, scene, quirks=quirks)
     # Hit topology is discrete: selection is held fixed for gradients
     # (differentiate shading wrt params given the forward's hit structure).
     kind = jax.lax.stop_gradient(hits.kind)
     index = jax.lax.stop_gradient(hits.index)
     hits = hits._replace(kind=kind, index=index)
-    # shadow queries only matter for rays that hit AND carry throughput
-    live_sh = (kind > 0).astype(jnp.float32)
-    if live is not None:
-        live_sh = live_sh * live
 
     mat = gather_material(scene, kind, index, quirks=quirks)
-    # prim_center only feeds the fog distance term — skip the (scatter-
-    # producing) gather entirely when fog shading is inactive.
+    # prim_center only feeds the fog distance term — skip the gather
+    # entirely when fog shading is inactive.
     if scene.has_fog and not scene.fog_zeroed:
         from skele_raytracer_tpu.ops.geometry import gather_rows, one_hot_rows
 
@@ -139,14 +87,7 @@ def _shade_hit(scene, cfg: RenderConfig, key, o, d, ids, bounce, live=None):
 
     fog_u = _fog_uniforms(scene, cfg, key, ids, bounce)
     direct = direct_illumination(
-        hits.point, hits.normal, scene, mat, prim_center, cfg, fog_u,
-        live=live_sh,
-        # Shadow batches of bounce waves (the calls that pass `live` —
-        # bounce is a traced scan index, so it can't gate this statically)
-        # originate at hemisphere-sampled hit points: incoherent, like the
-        # bounce wave that produced them — the culled occlusion kernel
-        # routes them to the fine clustering.
-        incoherent=live is not None,
+        hits.point, hits.normal, scene, mat, prim_center, cfg, fog_u
     )
 
     shades = kind == 1
@@ -216,9 +157,8 @@ def integrate_linear(scene, cfg: RenderConfig, key, o, d, sample_ids):
     t1 = f1 * rep(shades)[:, None]  # only shaded hits continue
 
     def _bounce_shade(o_b, d_b, t_b, bounce):
-        live = jnp.any(t_b != 0, axis=1).astype(jnp.float32)
         h, m, dir_b, sh, ms = _shade_hit(
-            scene, cfg, key, o_b, d_b, path_ids, bounce, live
+            scene, cfg, key, o_b, d_b, path_ids, bounce
         )
         bg = jnp.broadcast_to(scene.background[None, :], dir_b.shape)
         l_add = t_b * jnp.where(
@@ -270,9 +210,8 @@ def integrate_whitted(scene, cfg: RenderConfig, key, o, d, sample_ids):
     ids = sample_ids
 
     for depth in range(cfg.max_depth):
-        live = jnp.any(weight != 0, axis=1).astype(jnp.float32)
         hits, mat, direct, shades, miss = _shade_hit(
-            scene, cfg, key, frontier_o, frontier_d, ids, depth, live
+            scene, cfg, key, frontier_o, frontier_d, ids, depth
         )
         bg = jnp.broadcast_to(scene.background[None, :], direct.shape)
         l_local = jnp.where(

@@ -1,11 +1,11 @@
 """Top-level render orchestration.
 
-The TPU-native replacement for the reference's render loops
+The batched replacement for the reference's render loops
 (`generate_rays_parallel`, src/main.cpp:19-104, and the serial SDL variant
 src/main.cpp:108-227): one jit-compiled program that
 
   1. streams the frame's pixel samples in fixed-size chunks (`lax.map`) to
-     bound HBM residency — a 1080p jsample-5 frame is 52M primary rays and
+     bound device-memory residency — a 1080p jsample-5 frame is 52M primary rays and
      is never materialized at once;
   2. generates rays from flat sample ids (ops/camera.py) so the chunking —
      and the device sharding built on top of it (parallel/) — never changes
@@ -63,17 +63,16 @@ def render_ids_chunked(scene, cfg: RenderConfig, key, sample_ids):
     (full frame, device shards, progressive bands, training loss) builds
     on.
 
-    Sphere-only scenes under backend="pallas" route through the
-    whole-frame path-trace megakernel (ops/pallas/pathtrace.py): ONE
-    pallas_call covers ray-gen + RNG + intersect + shade + the MC bounce
-    loop, eliminating the ~30-small-ops-per-chunk dispatch overhead that
-    dominates the XLA-traced frame. Its custom_vjp recomputes gradients
-    through the jnp path below, so training is unaffected. Everything
-    else streams through the chunked jnp/culled-kernel pipeline.
+    Small scenes under backend="pallas" route through the whole-frame
+    path-trace kernel (ops/pallas/pathtrace.py): ONE pallas_call covers
+    ray-gen + RNG + intersect + shade + the MC bounce loop, instead of a
+    chain of small fusions per chunk. Its custom_vjp replays the
+    forward's hit records in XLA for gradients. Everything else streams
+    through the chunked jnp wavefront below.
     """
     from skele_raytracer_tpu.ops.pallas import pathtrace
 
-    cfg = cfg.resolved()  # backend="auto" -> pallas on TPU, jnp elsewhere
+    cfg = cfg.resolved()  # backend="auto" -> pallas on a GPU, jnp elsewhere
     if pathtrace.use_pathtrace(scene, cfg):
         return pathtrace.pathtrace_ids(scene, cfg, key, sample_ids)
     return render_ids_chunked_jnp(scene, cfg, key, sample_ids)
@@ -130,14 +129,11 @@ def render_frames(scene, cfg: RenderConfig, seeds):
     """Render a BATCH of frames (distinct RNG seeds) in ONE device
     program: [K, H, W, 3] float32 radiance.
 
-    The serving-throughput entry point: on this class of deployment the
-    fixed per-dispatch host<->device latency dominates a single 1080p
-    frame (~8 ms device vs ~25 ms round trip), and pipelining separate
-    dispatches does NOT amortize it — frames must share one program
-    (bench.py sustained row: 4.5 G rays/s/chip at K=16 vs 1.0 G
-    dispatched singly). Each frame is an independent sample stream, so
-    this also serves progressive accumulation: mean the K frames for a
-    K-times-denoised image at sustained rate.
+    The serving-throughput entry point: frames share one program, so the
+    fixed per-dispatch host<->device latency is paid once per batch, not
+    once per frame. Each frame is an independent sample stream, so this
+    also serves progressive accumulation: mean the K frames for a
+    K-times-denoised image.
 
     seeds: [K] uint32 (e.g. jnp.arange(K, dtype=jnp.uint32)). Memory is
     bounded by cfg.rays_per_chunk exactly as in render(); the K output

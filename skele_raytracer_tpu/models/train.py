@@ -1,14 +1,14 @@
 """Inverse-rendering optimization: the framework's "training" loop.
 
 The reference is forward-only (SURVEY.md §5: no checkpointing, no training
-of any kind). The differentiable TPU design adds the capability the north
+of any kind). The differentiable design adds the capability the north
 star asks for: gradient descent on scene parameters (sphere centers/radii,
 triangle vertices, materials, lights) against a target image, with the
 image-space loss and its backward pass sharded over a device mesh and the
 parameter gradients all-reduced (`psum`) across it.
 
 A `TrainState` is a plain pytree (scene params + optax optimizer state) so
-it checkpoints with orbax (utils/checkpoint.py) and shards trivially
+it checkpoints as one .npz (utils/checkpoint.py) and shards trivially
 (params replicated; rays sharded by parallel/api.py).
 """
 
@@ -52,10 +52,7 @@ def full_loss(scene, cfg: RenderConfig, key, target):
     ids = jnp.arange(H * W * spp, dtype=jnp.uint32)
     radiance = render_ids_chunked(scene, cfg, key, ids)
     # ids is the full arange by construction, so each pixel's target
-    # repeats spp times in id order — a broadcast, NOT a row gather.
-    # (The gather form `target[(ids // spp)]` measured 9 ms of device
-    # time per step at 1080p: 1-D row gathers are sublane-serial on TPU
-    # and it was the single largest op in the training step.)
+    # repeats spp times in id order — a broadcast, not a row gather.
     t = jnp.broadcast_to(
         jnp.reshape(target, (H * W, 1, 3)), (H * W, spp, 3)
     ).reshape(H * W * spp, 3)
@@ -151,28 +148,11 @@ def fit(
             state = restored
             start = int(state.step)
 
-    step_fn = jax.jit(
-        partial(train_step, cfg=cfg, tx=tx, mesh=mesh),
-        static_argnames=(),
-    )
-    # Geometry training invalidates the Morton-clustered render copy
-    # (scene/types.refresh_clusters). With the culled Pallas backend the
-    # FORWARD passes read clusters, so they must be rebuilt every step the
-    # triangles can move; with the jnp backend only the final scene needs
-    # a refresh so a later culled render sees the fitted geometry.
-    tri_moves = scene.triangles_active and (
-        trainable_paths is None
-        or any(p.startswith("triangles") for p in trainable_paths)
-    )
-    refresh_each_step = tri_moves and cfg.backend == "pallas"
-    from skele_raytracer_tpu.scene.types import refresh_clusters
-
+    step_fn = jax.jit(partial(train_step, cfg=cfg, tx=tx, mesh=mesh))
     key = jnp.uint32(seed)
     losses = []
     for i in range(start, steps):
         state, loss = step_fn(state, key=key, target=target, trainable=trainable)
-        if refresh_each_step:
-            state = state._replace(scene=refresh_clusters(state.scene))
         losses.append(float(loss))
         if log_every and (i % log_every == 0 or i == steps - 1):
             print(f"step {i}: loss {losses[-1]:.6e}")
@@ -180,7 +160,4 @@ def fit(
             ckpt.save(checkpoint_dir, state)
     if checkpoint_dir is not None and start < steps:
         ckpt.save(checkpoint_dir, state)
-    scene_out = state.scene
-    if tri_moves and not refresh_each_step:
-        scene_out = refresh_clusters(scene_out)
-    return scene_out, losses
+    return state.scene, losses

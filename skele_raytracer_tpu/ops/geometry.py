@@ -2,8 +2,9 @@
 
 The reference's per-ray scalar loops (sphere scan src/raytrace.h:152-166,
 triangle scan src/raytrace.h:170-187) become rank-2 [rays, primitives]
-vector computations that XLA fuses onto the VPU; the Pallas megakernel
-(ops/pallas) tiles the same math through VMEM for the hot path.
+vector computations that XLA fuses; the whole-frame path-trace kernel
+(ops/pallas/pathtrace.py) runs the same math per ray in registers for
+small scenes.
 
 All functions are pure and differentiable. Discrete hit *selection*
 (argmin indices, hit masks) is wrapped in stop_gradient by callers; the
@@ -63,8 +64,7 @@ def one_hot_rows(index, n, valid=None):
 
     Row gathers from small tables go through `one_hot @ table` instead of
     `table[index]`: identical values, but the gradient wrt the table is
-    `one_hot.T @ g` (an MXU matmul) instead of a serial scatter-add —
-    measured at >50% of the whole backward pass before this change.
+    the matrix product `one_hot.T @ g` instead of a scatter-add.
     """
     cols = jnp.arange(n, dtype=index.dtype)[None, :]
     oh = (index[:, None] == cols).astype(jnp.float32)
@@ -76,14 +76,12 @@ def one_hot_rows(index, n, valid=None):
 def gather_rows(oh, table):
     """`oh @ table` at HIGHEST matmul precision.
 
-    A one-hot gather must reproduce the table values EXACTLY, but the
-    TPU MXU's DEFAULT f32 precision truncates both operands to bf16 —
-    quantizing the gathered values to ~3 decimal digits (a sphere centre
-    at -50.0 snaps to 0.25-wide steps, which flattened small geometry
-    perturbations and broke the fixed-topology finite-difference
-    gradient check). HIGHEST runs the 6-pass bf16 split, exact for
-    0/1-weight rows at f32. Every one_hot_rows product goes through
-    here."""
+    A one-hot gather must reproduce the table values EXACTLY, but DEFAULT
+    f32 precision may run the product in reduced precision (TF32 on GPU
+    tensor cores keeps 10 mantissa bits), quantizing the gathered values
+    — a sphere centre at -50.0 would snap to coarse steps, flattening
+    small geometry perturbations. HIGHEST keeps full f32, exact for
+    0/1-weight rows. Every one_hot_rows product goes through here."""
     return jnp.matmul(oh, table, precision=jax.lax.Precision.HIGHEST)
 
 
@@ -203,7 +201,7 @@ def replay_triangle_t(o, d, tris, index):
     """Differentiable t of each ray against its SELECTED triangle — [R]
     work, not [R, T].
 
-    The Pallas kernels decide the hit structure forward-only (which
+    The path-trace kernel decides the hit structure forward-only (which
     triangle wins); this re-derives the winning t from (o, d,
     triangle[index]) so gradients flow to rays and vertices WITHOUT
     re-running (or differentiating) the full scan: the backward pass
@@ -223,37 +221,6 @@ def replay_triangle_t(o, d, tris, index):
     return dot(e2, q) * inv
 
 
-@jax.custom_vjp
-def _replay_t_or_kernel(o, d, tris, idx_f, t_kernel):
-    """t for each ray's selected triangle: the KERNEL's value forward, the
-    replay formula's gradient backward.
-
-    A pure forward render never materializes the replay recompute (three
-    [R] vertex gathers + the Möller-Trumbore chain — ~1.5 ms per dragon
-    gillum16 chunk); under AD the backward evaluates the replay VJP at
-    the same hit structure, which is exactly what differentiating the
-    replay primal would do (the <=1-ulp primal difference between kernel
-    t and replay t does not enter the backward formula)."""
-    return t_kernel
-
-
-def _replay_t_fwd(o, d, tris, idx_f, t_kernel):
-    return t_kernel, (o, d, tris, idx_f)
-
-
-def _replay_t_bwd(res, ct):
-    o, d, tris, idx_f = res
-    index = idx_f.astype(jnp.int32)
-    _, vjp = jax.vjp(
-        lambda o_, d_, tr: replay_triangle_t(o_, d_, tr, index), o, d, tris
-    )
-    do, dd, dtr = vjp(ct)
-    return do, dd, dtr, jnp.zeros_like(idx_f), jnp.zeros_like(ct)
-
-
-_replay_t_or_kernel.defvjp(_replay_t_fwd, _replay_t_bwd)
-
-
 class Hits(NamedTuple):
     """Combined nearest-hit record for a ray batch.
 
@@ -268,23 +235,16 @@ class Hits(NamedTuple):
     normal: jnp.ndarray  # [R, 3] (sphere normal; triangle geometric normal in clean mode)
 
 
-def intersect(o, d, scene, *, quirks: Quirks, backend: str = "jnp", live=None) -> Hits:
+def intersect(o, d, scene, *, quirks: Quirks) -> Hits:
     """Nearest hit over all scene primitives (the body of `shade`'s search,
     src/raytrace.h:146-187): spheres scanned first, then triangles, where a
-    triangle wins only with strictly smaller t.
-
-    backend "pallas" routes the [rays, primitives] scans through the fused
-    TPU kernels in ops/pallas/intersect.py (forward-only; same semantics
-    to float tolerance). "jnp" is the differentiable reference path.
+    triangle wins only with strictly smaller t. Each scan is the
+    brute-force [rays, primitives] broadcast, which XLA fuses into one
+    reduction per primitive kind.
     """
-    # Spheres always go through the jnp path: scene sphere counts are tiny
-    # (tens) and XLA's fusion of the [R, S] quadratic beats a pallas_call
-    # round trip (measured 1080p parity: jnp 0.25 s vs pallas 1.36 s).
-    # The Pallas kernels earn their keep on the triangle axis, where the
-    # [R, T] broadcast OOMs HBM at mesh scale and the MXU matmul
-    # formulation + cluster culling are the only viable route.
-    # ... and skipped statically when the scene has no real spheres
-    # (scene.spheres_active): the padded phantom slots can never hit.
+    # Each scan is skipped statically when the scene has none of its
+    # primitives (the padded phantom slots can never hit, but the [R, N]
+    # work and its gradient cost are real).
     if scene.has_spheres:
         sph = nearest_sphere(
             o, d, scene.spheres.center, scene.spheres.radius, scene.spheres.mask,
@@ -297,82 +257,15 @@ def intersect(o, d, scene, *, quirks: Quirks, backend: str = "jnp", live=None) -
             index=jnp.zeros((R,), jnp.int32),
             hit=jnp.zeros((R,), bool),
         )
-    # The triangle scan is skipped statically for sphere-only scenes (the
-    # padded placeholder triangles could never hit, but the [R, T] work and
-    # its gradient cost are real).
-    # Tiny triangle tables (a few handfuls, e.g. spheres1.scn's single
-    # decorative triangle) stay on the jnp path even under backend=
-    # "pallas": the XLA-fused [R, T] broadcast beats a pallas_call round
-    # trip at that scale (same measured reasoning as spheres above), and
-    # Mosaic cannot lower the kernels' (9, 4, n_t) -> (9, 4*n_t) reshape
-    # when 4*n_t is below the 128-lane register width.
-    use_pallas_tris = backend == "pallas" and scene.triangles.mask.shape[0] >= 64
     if scene.has_triangles:
-        if use_pallas_tris:
-            # The kernels are forward-only: feed them gradient-free inputs
-            # (no tangents ever reach pallas_call) and re-derive the
-            # continuous t differentiably from the discrete hit structure
-            # they return (replay_triangle_t). Selection below still uses
-            # the kernel's own t so the winner is exactly the kernel's.
-            sg = jax.lax.stop_gradient
-            o_k, d_k = sg(o), sg(d)
-            if scene.clusters is not None and scene.clusters.n_clusters > 4:
-                from skele_raytracer_tpu.ops.pallas import culled
-
-                # Bounce waves (the callers that pass `live`) carry
-                # footprint-sorted tiles whose mean shortlist is ~2.6
-                # clusters: route them to the FINE clustering with a
-                # 2-cluster group — the culled kernel's MXU cost is the
-                # tested-triangle count, and both knobs halve the group
-                # round-up waste (dragon bounce chunk 7.35 -> 4.70 ms,
-                # bitwise-identical). Coherent primaries keep the coarse
-                # clustering + wide group (deep front-to-back shortlists).
-                incoherent = live is not None
-                mesh = (scene.clusters_fine
-                        if incoherent and scene.clusters_fine is not None
-                        else scene.clusters)
-                t_t, t_idx, t_hit = culled.triangle_nearest_culled(
-                    o_k, d_k, sg(mesh), quirks=quirks,
-                    live=None if live is None else sg(live),
-                    group_c=2 if incoherent else None,
-                    # bf16x3 matmul for CLEAN mode: hit flags identical,
-                    # winning indices flip only on exact-tie silhouettes
-                    # (6 per 64k primary rays), t <= 4e-5 relative off —
-                    # for -23% (coherent) to -50% (incoherent) MXU time
-                    # (culled._plane_dot). Parity keeps the full-f32
-                    # product: its goldens are byte-compared against the
-                    # reference binary.
-                    mt_passes=6 if quirks.reference_triangle_test else 3,
-                )
-            else:
-                from skele_raytracer_tpu.ops.pallas import intersect as pk
-
-                t_t, t_idx, t_hit, _, _ = pk.triangle_nearest(
-                    o_k, d_k, sg(scene.triangles.v0), sg(scene.triangles.v1),
-                    sg(scene.triangles.v2), sg(scene.triangles.mask),
-                    quirks=quirks,
-                )
-            t_u = t_v = jnp.zeros_like(t_t)  # barycentrics unused downstream
-            tri = TriangleHits(t=t_t, index=t_idx, hit=t_hit, u=t_u, v=t_v)
-            # Kernel t forward, replay-formula gradient backward: a pure
-            # render skips the replay recompute entirely.
-            tri_t_diff = jnp.where(
-                t_hit,
-                _replay_t_or_kernel(
-                    o, d, scene.triangles, t_idx.astype(jnp.float32), t_t
-                ),
-                INF,
-            )
-        else:
-            tri = nearest_triangle(
-                o, d, scene.triangles.v0, scene.triangles.v1, scene.triangles.v2,
-                scene.triangles.mask, quirks=quirks,
-            )
-            tri_t_diff = tri.t
+        tri = nearest_triangle(
+            o, d, scene.triangles.v0, scene.triangles.v1, scene.triangles.v2,
+            scene.triangles.mask, quirks=quirks,
+        )
         tri_wins = tri.hit & (tri.t < jnp.where(sph.hit, sph.t, INF))
         kind = jnp.where(tri_wins, 2, jnp.where(sph.hit, 1, 0)).astype(jnp.int32)
         index = jnp.where(tri_wins, tri.index, sph.index)
-        t = jnp.where(tri_wins, tri_t_diff, sph.t)
+        t = jnp.where(tri_wins, tri.t, sph.t)
     else:
         tri_wins = None
         kind = jnp.where(sph.hit, 1, 0).astype(jnp.int32)
@@ -399,7 +292,7 @@ def intersect(o, d, scene, *, quirks: Quirks, backend: str = "jnp", live=None) -
         # gather (same ops on the same rows, bitwise identical), the
         # per-triangle work is loop-invariant across render chunks, and
         # the per-ray cost drops from two [R] gathers + cross + rsqrt to
-        # a single [R] gather (~10% of the dragon bounce-wave glue).
+        # a single [R] gather.
         e1_t = scene.triangles.v1 - scene.triangles.v0
         e2_t = scene.triangles.v2 - scene.triangles.v0
         n_table = normalize(jnp.cross(e1_t, e2_t))
@@ -441,3 +334,24 @@ def shadow_occluded(point, to_light_dir, scene, *, quirks: Quirks):
         )
         occluded = occluded | jnp.any(ok, axis=1)
     return occluded
+
+
+def hit_geometry(o, d, scene, kind, index, t):
+    """Differentiable (point, normal) replay from the discrete hit
+    structure (kind 0 miss / 1 sphere / 2 triangle, primitive index, t):
+    sphere normal from the selected centre, triangle geometric normal
+    flipped toward the ray — intersect's normals without its scans."""
+    t_safe = jnp.where(jnp.isfinite(t), t, 0.0)
+    point = o + d * t_safe[:, None]
+    S = scene.spheres.mask.shape[0]
+    oh = one_hot_rows(jnp.where(kind == 1, index, 0), S)
+    n_sph = normalize(point - gather_rows(oh, scene.spheres.center))
+    idx_t = jnp.minimum(
+        jnp.where(kind == 2, index, 0), scene.triangles.v0.shape[0] - 1
+    )
+    e1 = scene.triangles.v1[idx_t] - scene.triangles.v0[idx_t]
+    e2 = scene.triangles.v2[idx_t] - scene.triangles.v0[idx_t]
+    n_tri = normalize(jnp.cross(e1, e2))
+    n_tri = n_tri * jnp.where(dot(n_tri, d)[:, None] > 0, -1.0, 1.0)
+    normal = jnp.where((kind == 2)[:, None], n_tri, n_sph)
+    return point, normal

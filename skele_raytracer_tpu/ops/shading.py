@@ -117,8 +117,7 @@ def gather_material(scene, kind, index, *, quirks: Quirks) -> GatheredMaterial:
     return _unpack_material(vals)
 
 
-def _shadow_mask(x, normal, scene, cfg: RenderConfig, l_vec, light_dist=None, live=None,
-                 incoherent=False):
+def _shadow_mask(x, normal, scene, cfg: RenderConfig, l_vec, light_dist=None):
     """not-shadowed mask [R, L] for shadow rays from x toward each light.
 
     Replicates `shadow()` (src/utils.h:42-76): origin offset is the scalar
@@ -127,11 +126,9 @@ def _shadow_mask(x, normal, scene, cfg: RenderConfig, l_vec, light_dist=None, li
     occlude). Clean mode offsets along the normal, bounds point-light
     occluders by the light distance, and lets triangles occlude too.
 
-    Implementation iterates the (tiny, static) light axis in Python
-    instead of flattening to [R*L, 3]: [N, 3] arrays tile terribly on TPU
-    (the 3-wide trailing dim pads to 128 lanes), and the broadcast +
-    reshape round trip was measured at ~40% of the clean-mode frame as
-    unfused 42x-padded data-formatting ops.
+    The (tiny, static) light axis is iterated in Python rather than
+    flattened to [R*L, 3], so each light's scan is its own [R, N]
+    reduction.
     """
     quirks = cfg.quirks
     R, L = l_vec.shape[0], l_vec.shape[1]
@@ -143,54 +140,6 @@ def _shadow_mask(x, normal, scene, cfg: RenderConfig, l_vec, light_dist=None, li
         origin = offset_origin(x, normal)
     t_clip = 1.0 if quirks.near_clip_t_le_1 else CLEAN_T_EPS
     bound = light_dist is not None and not quirks.near_clip_t_le_1
-
-    use_culled = (
-        not quirks.sphere_only_shadows
-        and scene.has_triangles
-        and cfg.backend == "pallas"
-        and scene.clusters is not None
-        and scene.clusters.n_clusters > 4
-    )
-
-    # Mesh-scale occlusion: the [R, T] broadcast would OOM on dragon-sized
-    # meshes; the culled ANY-HIT kernel streams clusters and stops each
-    # tile at its first blocker. Occlusion is a binary gate (no gradient
-    # in the reference semantics), so the forward-only kernel gets
-    # gradient-free inputs — backend="pallas" stays fully differentiable
-    # end to end. ALL lights ride ONE kernel call ([L*R] rays): measured
-    # neutral at dragon's L=2 (occlusion cost is linear in rays), but it
-    # pays the per-call sort + cull-table fixed cost once instead of L
-    # times, which matters as the light count grows.
-    occ_tri_all = None
-    if not quirks.sphere_only_shadows and scene.has_triangles and use_culled:
-        import jax as _jax
-
-        from skele_raytracer_tpu.ops.pallas import culled
-
-        sg = _jax.lax.stop_gradient
-        # Bounce-wave shadow batches share the bounce waves' narrow
-        # footprint-sorted shortlists: fine clustering + 2-cluster
-        # groups (see geometry.intersect). Primary shadow batches are
-        # COHERENT (surface points toward one light) and keep the
-        # coarse clustering + wide group.
-        mesh = (scene.clusters_fine
-                if incoherent and scene.clusters_fine is not None
-                else scene.clusters)
-        dirs = normalize(jnp.swapaxes(l_vec, 0, 1).reshape(L * R, 3))
-        org = jnp.broadcast_to(origin[None], (L, R, 3)).reshape(L * R, 3)
-        tmax = (jnp.swapaxes(light_dist, 0, 1).reshape(L * R)
-                if bound else None)
-        lv = (None if live is None
-              else jnp.broadcast_to(sg(live)[None], (L, R)).reshape(L * R))
-        occ_tri_all = culled.triangle_occluded(
-            sg(org), sg(dirs), sg(mesh), quirks=quirks,
-            t_max=None if tmax is None else sg(tmax),
-            live=lv,
-            group_c=2 if incoherent else None,
-            # clean keeps bf16x3 everywhere; parity full f32 (see
-            # geometry.intersect)
-            mt_passes=6 if quirks.reference_triangle_test else 3,
-        ).reshape(L, R)
 
     cols = []
     for l in range(L):
@@ -207,17 +156,14 @@ def _shadow_mask(x, normal, scene, cfg: RenderConfig, l_vec, light_dist=None, li
         else:
             occ = jnp.zeros((R,), bool)
         if not quirks.sphere_only_shadows and scene.has_triangles:
-            if use_culled:
-                occ = occ | occ_tri_all[l]
+            t_tri, ok, _, _ = ray_triangle_all(
+                origin, direction, scene.triangles.v0, scene.triangles.v1,
+                scene.triangles.v2, scene.triangles.mask, quirks=quirks,
+            )
+            if bound:
+                occ = occ | jnp.any(ok & (t_tri < light_dist[:, l, None]), axis=1)
             else:
-                t_tri, ok, _, _ = ray_triangle_all(
-                    origin, direction, scene.triangles.v0, scene.triangles.v1,
-                    scene.triangles.v2, scene.triangles.mask, quirks=quirks,
-                )
-                if bound:
-                    occ = occ | jnp.any(ok & (t_tri < light_dist[:, l, None]), axis=1)
-                else:
-                    occ = occ | jnp.any(ok, axis=1)
+                occ = occ | jnp.any(ok, axis=1)
         cols.append(~occ)
     return jnp.stack(cols, axis=1)  # [R, L]
 
@@ -263,14 +209,12 @@ def _fog_term(scene, mat, prim_center, l, x, n, light_pos, light_col, fog_u):
     return jnp.sum(per_fog * fog.mask[None, None, :, None], axis=2)  # [R, L, 3]
 
 
-def direct_illumination(
-    x, n, scene, mat, prim_center, cfg: RenderConfig, fog_u=None, live=None,
-    incoherent=False,
-):
+def direct_illumination(x, n, scene, mat, prim_center, cfg: RenderConfig,
+                        fog_u=None):
     """ambient + diffuse + specular at the hit points — the REACHABLE body
     of the reference's direct_illumination (src/raytrace.h:36-44; the
     reflection/refraction block below its early return is dead code and is
-    realized instead by the clean-mode wavefront in models/whitted.py).
+    realized instead by models/integrator.integrate_whitted).
 
     x, n: [R, 3] hit points / normals. mat: gathered material. prim_center:
     [R, 3] center of the hit sphere (fog distance term). fog_u: fog uniforms
@@ -295,8 +239,7 @@ def direct_illumination(
         l = l_vec / jnp.maximum(d_l, 1e-30)[:, :, None]
         lmask = plights.mask[None, :]  # [1, L]
         if cfg.use_shadows:
-            unshadowed = _shadow_mask(x, n, scene, cfg, l_vec, light_dist=d_l,
-                                      live=live, incoherent=incoherent)
+            unshadowed = _shadow_mask(x, n, scene, cfg, l_vec, light_dist=d_l)
         else:
             unshadowed = jnp.ones_like(d_l, bool)
         gate = lmask * unshadowed  # [R, L]
@@ -337,8 +280,7 @@ def direct_illumination(
         ld = jnp.broadcast_to(ld, (x.shape[0],) + ld.shape[1:])
         dmask = dlights.mask[None, :]
         if cfg.use_shadows:
-            unshadowed_d = _shadow_mask(x, n, scene, cfg, ld, light_dist=None,
-                                        live=live, incoherent=incoherent)
+            unshadowed_d = _shadow_mask(x, n, scene, cfg, ld, light_dist=None)
         else:
             unshadowed_d = jnp.ones((x.shape[0], dlights.mask.shape[0]), bool)
         gate_d = dmask * unshadowed_d

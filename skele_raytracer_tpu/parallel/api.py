@@ -3,14 +3,14 @@
 The reference's entire parallelism story is one OpenMP pragma over image
 rows (reference src/main.cpp:33) plus a CUDA pixel grid
 (cudasrc/main.cu:86-103); there is no multi-device or multi-host anything
-(SURVEY.md §2.3). The TPU-native design scales the same embarrassingly
+(SURVEY.md §2.3). This design scales the same embarrassingly
 parallel structure onto a `jax.sharding.Mesh`:
 
 * mesh axes ("tiles", "samples"): the flat ray-id space (pixel x spp x
   path) is partitioned over both axes. "tiles" plays the role of the
   reference's row-parallelism (data parallel over pixels); "samples" shards
   the supersample/gillum-path axis when the image axis alone is too small
-  to fill a pod (SURVEY.md §5 long-axis discussion).
+  to fill the mesh (SURVEY.md §5 long-axis discussion).
 * the scene pytree is replicated (it is small — even dragon.scn's 10k
   triangles are ~KBs); rays are sharded. No communication happens in the
   forward pass at all.
@@ -37,10 +37,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from skele_raytracer_tpu.config import RenderConfig
 from skele_raytracer_tpu.models.renderer import render_ids_chunked
 
-try:  # jax >= 0.6 spells it jax.shard_map; keep the experimental fallback
-    shard_map = jax.shard_map
-except AttributeError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+shard_map = jax.shard_map
 
 
 def factor_mesh(n: int) -> Tuple[int, int]:
@@ -146,7 +143,7 @@ def loss_and_grad_sharded(scene, cfg: RenderConfig, key, target, mesh: Mesh):
     ids, _ = _pad_ids(n_total, n_shards)
     # Target value for each ray id: ids are the padded arange, so each
     # pixel's target repeats spp times in order — a broadcast, not a row
-    # gather (gathers are sublane-serial on TPU; see train.full_loss).
+    # gather (see train.full_loss).
     # Padding rows repeat the last pixel (the old clipped-gather value);
     # they are masked out of the loss anyway.
     t2 = jnp.reshape(target, (H * W, 3))

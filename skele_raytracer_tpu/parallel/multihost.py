@@ -1,23 +1,24 @@
-"""Multi-host pod execution: runtime init + host-spanning render/train.
+"""Multi-host execution: runtime init + host-spanning render/train.
 
 The reference has no multi-process capability at all (SURVEY §2.3); its
-scaling ceiling is one machine's OpenMP threads. The TPU framework scales
-across a pod slice with the standard JAX multi-controller recipe:
+scaling ceiling is one machine's OpenMP threads. This framework scales
+across hosts with the standard JAX multi-controller recipe:
 
 * every host runs the SAME program and calls `initialize()` once;
 * the global mesh spans all hosts' devices ("tiles" x "samples",
   parallel/api.py); ray ids are sharded over it, so each host renders the
   tiles its devices own — the analog of the reference's per-row OpenMP
   split, but across machines with zero communication in the forward pass;
-* gradient all-reduce (`psum` in loss_and_grad_sharded) rides ICI within
-  a slice and DCN across slices — XLA picks the transport from the mesh;
+* gradient all-reduce (`psum` in loss_and_grad_sharded) is one
+  collective; XLA picks the transport (NVLink within a host, the network
+  across hosts);
 * `gather_image` brings the frame to host 0 for IO, the only host
   transfer in the pipeline.
 
 Single-host multi-device (and the CPU-simulated mesh used in tests) needs
 no initialize(); everything below degrades gracefully to one process.
 
-Scaling methodology (no pod is attached to CI): the sharding-invariance
+Scaling methodology (no cluster is attached to CI): the sharding-invariance
 tests prove the N-device program computes the identical frame, and
 `scaling_report()` measures throughput on 1..N local devices; the
 multi-host path is the same program with `jax.devices()` spanning hosts.
@@ -33,7 +34,6 @@ import numpy as np
 
 from skele_raytracer_tpu.config import RenderConfig
 from skele_raytracer_tpu.parallel.api import make_mesh, render_radiance_sharded
-from skele_raytracer_tpu.utils.profiling import sync
 
 
 def initialize(
@@ -43,9 +43,9 @@ def initialize(
 ) -> None:
     """Start the JAX distributed runtime (jax.distributed.initialize).
 
-    On TPU pods the arguments are discovered from the environment; pass
-    them explicitly for manual clusters. No-op if already initialized or
-    single-process.
+    Pass the coordinator address (`host:port`), process count and this
+    process's id explicitly unless a cluster environment JAX detects
+    provides them. No-op if already initialized.
     """
     try:
         jax.distributed.initialize(
@@ -100,10 +100,10 @@ def scaling_report(
         fn = jax.jit(
             lambda s, k, m=mesh: render_radiance_sharded(s, cfg, k, m)
         )
-        sync(fn(scene, jnp.uint32(seed)))  # compile
+        jax.block_until_ready(fn(scene, jnp.uint32(seed)))  # compile
         t0 = time.perf_counter()
         for _ in range(iters):
-            sync(fn(scene, jnp.uint32(seed)))
+            jax.block_until_ready(fn(scene, jnp.uint32(seed)))
         dt = (time.perf_counter() - t0) / iters
         rows.append(dict(devices=n, seconds=dt, rays_per_sec=rays / dt))
     # Normalize by PER-DEVICE throughput of the smallest run so efficiency

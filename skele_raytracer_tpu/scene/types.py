@@ -2,7 +2,7 @@
 
 The reference stores the scene as C++ vectors of structs (`Scene`,
 reference src/scene.h:13-28; POD shapes src/shapes.h, lights src/lights.h,
-materials src/material.h, fog src/Fog.h). The TPU-native design flattens
+materials src/material.h, fog src/Fog.h). This design flattens
 everything to padded struct-of-arrays pytrees of `jnp` arrays so that
 
 * the whole scene is one `device_put` (the analog of the CUDA build's
@@ -15,11 +15,25 @@ everything to padded struct-of-arrays pytrees of `jnp` arrays so that
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
+import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+
+def _pytree_dataclass(cls):
+    """A frozen dataclass registered as a JAX pytree. Fields declared with
+    `_static()` are metadata (trace-time constants, part of the jit cache
+    key); all others are leaves. `replace(**changes)` returns a copy."""
+    cls = dataclasses.dataclass(frozen=True)(cls)
+    cls.replace = lambda self, **changes: dataclasses.replace(self, **changes)
+    return jax.tree_util.register_dataclass(cls)
+
+
+def _static(default):
+    return dataclasses.field(default=default, metadata=dict(static=True))
 
 
 def _pad_rows(a: np.ndarray, n: int) -> np.ndarray:
@@ -34,7 +48,7 @@ def padded_size(count: int, multiple: int = 8) -> int:
     return ((count + multiple - 1) // multiple) * multiple
 
 
-@struct.dataclass
+@_pytree_dataclass
 class Spheres:
     """Spheres + their materials (reference src/shapes.h:12-23,
     src/SphereCollider.h:8-12, src/material.h:9-26), SoA and padded."""
@@ -54,7 +68,7 @@ class Spheres:
         return self.center.shape[0]
 
 
-@struct.dataclass
+@_pytree_dataclass
 class Triangles:
     """Triangles + their materials (reference src/shapes.h:26-33), SoA.
 
@@ -78,7 +92,7 @@ class Triangles:
         return self.v0.shape[0]
 
 
-@struct.dataclass
+@_pytree_dataclass
 class PointLights:
     """Point lights (reference src/lights.h:20-23)."""
 
@@ -87,7 +101,7 @@ class PointLights:
     mask: jnp.ndarray  # [L]
 
 
-@struct.dataclass
+@_pytree_dataclass
 class DirectionalLights:
     """Directional lights (reference src/lights.h:14-18). NOTE the reference
     treats `direction` as pointing TOWARD the light when shading
@@ -99,7 +113,7 @@ class DirectionalLights:
     mask: jnp.ndarray  # [L]
 
 
-@struct.dataclass
+@_pytree_dataclass
 class Fog:
     """Spherical fog volumes (reference src/Fog.h:10-32)."""
 
@@ -111,7 +125,7 @@ class Fog:
     mask: jnp.ndarray  # [F]
 
 
-@struct.dataclass
+@_pytree_dataclass
 class Camera:
     """Camera (reference src/camera.h:8-32). `right` is derived at ray-gen
     time as cross(-direction, up) exactly as the reference constructor does
@@ -125,7 +139,7 @@ class Camera:
     # (the reference projects with Options.fov instead, src/main.cpp:43)
 
 
-@struct.dataclass
+@_pytree_dataclass
 class Scene:
     """Full differentiable scene pytree (reference src/scene.h:13-28).
 
@@ -147,34 +161,21 @@ class Scene:
     fog: Fog
     camera: Camera
     background: jnp.ndarray  # [3]
-    fog_active: bool = struct.field(pytree_node=False, default=False)
-    triangles_active: bool = struct.field(pytree_node=False, default=False)
-    directional_active: bool = struct.field(pytree_node=False, default=False)
+    fog_active: bool = _static(False)
+    triangles_active: bool = _static(False)
+    directional_active: bool = _static(False)
     # Whether ANY real point light / sphere exists. The padded tables
     # always hold >= 1 (>= 8) slots, so without these flags a scene lit
     # only by a directional light still pays a full per-light shadow
-    # sweep (a triangle-kernel launch per chunk) for a masked phantom
-    # slot — measured ~5% of the dragon gillum16 frame.
-    point_active: bool = struct.field(pytree_node=False, default=False)
-    spheres_active: bool = struct.field(pytree_node=False, default=False)
+    # sweep for a masked phantom slot.
+    point_active: bool = _static(False)
+    spheres_active: bool = _static(False)
     # Parity's stand-in for the reference's uninitialized fog (SURVEY §2.9.6)
     # is all-zero parameters, which makes the fog-rerouted diffuse+specular
     # terms IDENTICALLY zero (exp(0)=1 -> never "interacts"; albedo=0 kills
     # the other branch). This static flag lets shading fold that to zero
     # instead of drawing fog randoms and computing a provably-zero term.
-    fog_zeroed: bool = struct.field(pytree_node=False, default=False)
-    # Morton-clustered copy of the triangles + cluster AABBs
-    # (ops/accel.ClusteredMesh), built once at scene construction for the
-    # culled Pallas intersection path. None when the scene has no
-    # triangles. Not a trainable view: gradients flow through the primary
-    # `triangles` arrays (the jnp backend); these are render-only data.
-    clusters: Optional[tuple] = None
-    # Second clustering at accel.FINE_CLUSTER_SIZE for INCOHERENT ray
-    # waves (footprint-sorted bounce/shadow batches): finer clusters
-    # halve the culled kernels' group round-up waste there while the
-    # coarse clustering stays optimal for coherent primaries
-    # (accel.FINE_CLUSTER_SIZE rationale). None when `clusters` is None.
-    clusters_fine: Optional[tuple] = None
+    fog_zeroed: bool = _static(False)
 
     @property
     def has_fog(self) -> bool:
@@ -195,31 +196,6 @@ class Scene:
     @property
     def has_spheres(self) -> bool:
         return self.spheres_active
-
-
-def refresh_clusters(scene: Scene) -> Scene:
-    """Rebuild the Morton-clustered render copy from the CURRENT triangle
-    arrays.
-
-    `Scene.clusters` is render-only data built once at construction; after
-    optimizing triangle vertices (models/train.py) the cluster copies and
-    AABBs silently diverge from `scene.triangles`, so a culled
-    (backend="pallas") render of the fitted scene would use pre-training
-    geometry. Host-side only (the Morton build sorts on the host) — call
-    between jit steps, not inside them. No-op for triangle-free scenes.
-    """
-    if not scene.triangles_active:
-        return scene
-    from skele_raytracer_tpu.ops import accel
-
-    t = scene.triangles
-    return scene.replace(
-        clusters=accel.build_clusters(t.v0, t.v1, t.v2, t.mask),
-        clusters_fine=accel.build_clusters(
-            t.v0, t.v1, t.v2, t.mask,
-            cluster_size=accel.FINE_CLUSTER_SIZE,
-        ),
-    )
 
 
 def make_scene(
@@ -281,17 +257,6 @@ def make_scene(
     sph = build(spheres, dict(center=3, radius=1, **mat_fields), ns)
     tri = build(triangles, dict(v0=3, v1=3, v2=3, **mat_fields), nt)
 
-    clusters = clusters_fine = None
-    if triangles:
-        from skele_raytracer_tpu.ops import accel
-
-        clusters = accel.build_clusters(
-            tri["v0"], tri["v1"], tri["v2"], tri["mask"]
-        )
-        clusters_fine = accel.build_clusters(
-            tri["v0"], tri["v1"], tri["v2"], tri["mask"],
-            cluster_size=accel.FINE_CLUSTER_SIZE,
-        )
     pl = build(point_lights, dict(position=3, colour=3), nl)
     dl = build(directional_lights, dict(direction=3, colour=3), nd)
     fg = build(fog, dict(center=3, radius=1, albedo=3, scattering=1, absorption=1), nf)
@@ -316,6 +281,4 @@ def make_scene(
         point_active=len(point_lights) > 0,
         spheres_active=len(spheres) > 0,
         fog_zeroed=fog_zeroed,
-        clusters=clusters,
-        clusters_fine=clusters_fine,
     )

@@ -9,6 +9,9 @@ reachable paths) would wrap in C, here it is clamped to 0 defensively, with
 
 from __future__ import annotations
 
+import struct
+import zlib
+
 import numpy as np
 
 
@@ -40,6 +43,26 @@ def write_ppm(path: str, img, parity: bool = False) -> None:
     with open(path, "wb") as f:
         f.write(f"P6\n{w} {h}\n255\n".encode())
         f.write(q.tobytes())
+
+
+def write_png(path: str, img) -> None:
+    """8-bit RGB PNG of the reference-quantized image: signature, IHDR,
+    one zlib-compressed IDAT of unfiltered scanlines, IEND."""
+    q = quantize(img)
+    h, w, _ = q.shape
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        crc = zlib.crc32(tag + data) & 0xFFFFFFFF
+        return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", crc)
+
+    # filter byte 0 (None) before every scanline
+    raw = np.concatenate(
+        [np.zeros((h, 1), np.uint8), q.reshape(h, w * 3)], axis=1).tobytes()
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(raw)))
+        f.write(chunk(b"IEND", b""))
 
 
 def read_ppm(path: str) -> np.ndarray:

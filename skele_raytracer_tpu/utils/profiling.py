@@ -16,7 +16,6 @@ from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 import jax
-import numpy as np
 
 
 @dataclass
@@ -71,14 +70,6 @@ def stage(stats: RenderStats, name: str):
         stats.stages[name] = stats.stages.get(name, 0.0) + time.perf_counter() - t0
 
 
-def sync(x) -> None:
-    """Force device work to really finish (on some PJRT backends
-    block_until_ready returns early; a 1-element host read is gated on
-    completion)."""
-    leaf = jax.tree_util.tree_leaves(x)[0]
-    np.asarray(leaf.ravel()[:1])
-
-
 @contextlib.contextmanager
 def profiler_trace(log_dir: Optional[str]):
     """jax.profiler trace if log_dir is given, else a no-op."""
@@ -101,6 +92,5 @@ def timed_render(render_fn, cfg, *args, trace_dir: Optional[str] = None):
     )
     with profiler_trace(trace_dir):
         with stage(stats, "render"):
-            img = render_fn(*args)
-            sync(img)
+            img = jax.block_until_ready(render_fn(*args))
     return img, stats

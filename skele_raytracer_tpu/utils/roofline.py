@@ -1,24 +1,18 @@
-"""Speed-of-light (roofline) accounting for renders on this chip.
+"""Speed-of-light (roofline) accounting for renders on the attached GPU.
 
 The reference ships raw `time`(1) logs only (src/time_notes:1-17); this
-module supplies the analysis the north star asks for: how close each
-device program runs to the hardware ceiling, and WHICH ceiling binds.
+module supplies the analysis: how close each device program runs to the
+hardware ceiling, and WHICH ceiling binds.
 
-Two complementary views:
-
+* `peaks(device_kind)` — the published peaks of the card JAX reports, from
+  one table keyed by `device_kind`. A card that is not in the table is an
+  error, never a default.
 * `analyze_trace(dir)` — parse a `jax.profiler.trace` capture and, for
-  every device op, derive achieved HBM bandwidth from the HLO shapes in
-  its `long_name` (both LOGICAL element bytes and PHYSICAL as-laid-out
-  bytes from the `{...:T(8,128)}` tiling annotations — a f32[R,3] stream
-  occupies 3 of 128 lanes, so its physical traffic is ~42x logical).
-  Elementwise-fused programs are HBM-bound, so physical-bytes/time vs
-  `PEAKS.hbm` is the per-stage speed-of-light number.
-* `frame_model(...)` — an analytic per-ray cost model for a render
-  config (FLOPs and minimal HBM traffic), used by bench.py to report an
-  MFU-style `sol` block without needing a trace.
-
-Peaks are TPU v5e (the attached chip) public figures; override `PEAKS`
-for other parts.
+  every device op, derive achieved memory bandwidth from the HLO shapes in
+  its `long_name`.
+* `frame_model(...)` — an analytic per-ray cost model for a render config
+  (FLOPs and minimal device-memory traffic), used by bench.py to report a
+  speed-of-light block without needing a trace.
 """
 
 from __future__ import annotations
@@ -33,26 +27,34 @@ from dataclasses import dataclass
 
 import numpy as np
 
-# TPU v5e public peaks. MXU bf16 197 TFLOP/s/chip; HBM 16 GB @ 819 GB/s.
-# f32 `dot` with Precision.HIGHEST runs ~6 bf16 MXU passes (3 product
-# terms, 2 passes each), so its effective ceiling is bf16/6. The VPU
-# figure is derived, not published: 8x128 lanes x 4 ALUs x 2 (FMA) at
-# the ~1.5 GHz implied by the MXU spec (197e12 / (4 MXUs * 128*128*2)).
+# Published peaks, dense (no sparsity), from NVIDIA's H100 Tensor Core GPU
+# data sheet. fp32 is the rate outside the tensor cores (the path tracer's
+# per-ray arithmetic); tf32/bf16 are the tensor-core rates; hbm is bytes/s.
+# The rates assume the card's full power limit.
 PEAKS = {
-    "hbm": 819e9,  # bytes/s
-    "mxu_bf16": 197e12,  # FLOP/s
-    "mxu_f32_highest": 197e12 / 6.0,
-    "vpu_f32": 12e12,  # FLOP/s (derived estimate, see above)
+    "NVIDIA H100 80GB HBM3": {  # H100 SXM5
+        "fp32": 67e12, "tf32": 495e12, "bf16": 989e12, "hbm": 3.35e12,
+    },
+    "NVIDIA H100 PCIe": {
+        "fp32": 51e12, "tf32": 378e12, "bf16": 756e12, "hbm": 2.0e12,
+    },
 }
 
-_LANE = 128
-_SUBLANE = 8
 
-# f32[131072,16]{1,0:T(8,128)}  /  pred[512]{0}  /  s32[80,2]{1,0:T(8,128)}
+def peaks(device_kind: str) -> dict:
+    """Peak rates of the card named by `jax.devices()[0].device_kind`."""
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise ValueError(
+            f"no published peaks for device {device_kind!r}; known: "
+            f"{sorted(PEAKS)}") from None
+
+
+# f32[131072,16]{1,0}  /  pred[512]{0}  /  s32[80,2]
 _SHAPE_RE = re.compile(
     r"(f32|f16|bf16|s32|u32|s16|u16|s8|u8|pred|f64|s64|u64)"
     r"\[([0-9,]*)\]"
-    r"(?:\{([^}]*)\})?"
 )
 
 _DTYPE_BYTES = {
@@ -63,43 +65,15 @@ _DTYPE_BYTES = {
 }
 
 
-def _shape_bytes(dtype: str, dims: list[int], layout: str | None):
-    """(logical, physical) bytes for one HLO shape.
-
-    Physical = elements padded to the (8, 128) register tile on the two
-    minor dims (the `T(8,128)` annotation), which is what actually moves
-    through HBM for dense ops; scalars and 1-D shapes pad the lane dim.
-    """
-    b = _DTYPE_BYTES[dtype]
-    n = int(np.prod(dims)) if dims else 1
-    logical = n * b
-    if not dims:
-        return logical, b * _LANE  # scalar broadcast into a register
-    pad = list(dims)
-    tile = (_SUBLANE, _LANE)
-    if layout and "T(" in (layout or ""):
-        m = re.search(r"T\((\d+),(\d+)\)", layout)
-        if m:
-            tile = (int(m.group(1)), int(m.group(2)))
-    if len(pad) == 1:
-        pad[-1] = -(-pad[-1] // tile[1]) * tile[1]
-    else:
-        pad[-1] = -(-pad[-1] // tile[1]) * tile[1]
-        pad[-2] = -(-pad[-2] // tile[0]) * tile[0]
-    physical = int(np.prod(pad)) * b
-    return logical, physical
-
-
-def op_bytes(long_name: str):
-    """(logical, physical) HBM bytes from an HLO op's full expression
-    (result shape + operand shapes) as found in trace `args.long_name`."""
-    logical = physical = 0
+def op_bytes(long_name: str) -> int:
+    """Bytes named by an HLO op's full expression (result shape + operand
+    shapes) as found in trace `args.long_name` — one read or write of
+    each array."""
+    total = 0
     for m in _SHAPE_RE.finditer(long_name):
-        dims = [int(x) for x in m.group(2).split(",") if x] if m.group(2) else []
-        lo, ph = _shape_bytes(m.group(1), dims, m.group(3))
-        logical += lo
-        physical += ph
-    return logical, physical
+        dims = [int(x) for x in m.group(2).split(",") if x]
+        total += int(np.prod(dims, dtype=np.int64)) * _DTYPE_BYTES[m.group(1)]
+    return total
 
 
 @dataclass
@@ -108,21 +82,15 @@ class OpStat:
     long_name: str
     total_s: float
     count: int
-    logical_bytes: int
-    physical_bytes: int
+    bytes: int
 
     @property
-    def logical_gbps(self):
-        return self.logical_bytes * self.count / self.total_s / 1e9
+    def gbps(self):
+        return self.bytes * self.count / self.total_s / 1e9
 
-    @property
-    def physical_gbps(self):
-        return self.physical_bytes * self.count / self.total_s / 1e9
-
-    @property
-    def sol_pct(self):
-        """% of HBM speed-of-light, charging physical (padded) traffic."""
-        return 100.0 * self.physical_gbps * 1e9 / PEAKS["hbm"]
+    def hbm_pct(self, peak: dict):
+        """% of the card's memory-bandwidth speed of light."""
+        return 100.0 * self.gbps * 1e9 / peak["hbm"]
 
 
 def _load_trace_events(trace_dir: str):
@@ -137,14 +105,15 @@ def _load_trace_events(trace_dir: str):
 
 def analyze_trace(trace_dir: str, min_total_s: float = 0.0):
     """Aggregate device-side ops of a jax.profiler capture into OpStats
-    sorted by total time (descending)."""
+    sorted by total time (descending). Device planes are the processes
+    named `/device:GPU:<n>`."""
     events = _load_trace_events(trace_dir)
     dev_pids = {
         e["pid"]
         for e in events
         if e.get("ph") == "M"
         and e.get("name") == "process_name"
-        and "TPU" in str(e.get("args", {}).get("name", ""))
+        and "/device:GPU" in str(e.get("args", {}).get("name", ""))
     }
     agg: dict[str, list] = defaultdict(lambda: [0.0, 0, ""])
     for e in events:
@@ -158,27 +127,11 @@ def analyze_trace(trace_dir: str, min_total_s: float = 0.0):
             a[2] = str(e.get("args", {}).get("long_name", ""))
     out = []
     for name, (tot, cnt, long_name) in agg.items():
-        lo, ph = op_bytes(long_name) if long_name else (0, 0)
         if tot >= min_total_s:
-            out.append(OpStat(name, long_name, tot, cnt, lo, ph))
+            out.append(OpStat(name, long_name, tot, cnt,
+                              op_bytes(long_name) if long_name else 0))
     out.sort(key=lambda s: -s.total_s)
     return out
-
-
-def print_report(stats, top: int = 15, total_s: float | None = None):
-    shown = stats[:top]
-    all_s = sum(s.total_s for s in stats)
-    print(f"{'op':<44} {'time':>9} {'%dev':>5} {'GB/s log':>9} "
-          f"{'GB/s phys':>9} {'SoL%':>5}")
-    for s in shown:
-        print(
-            f"{s.name[:44]:<44} {s.total_s*1e3:8.2f}ms "
-            f"{100*s.total_s/all_s:4.1f}% {s.logical_gbps:9.1f} "
-            f"{s.physical_gbps:9.1f} {s.sol_pct:5.1f}"
-        )
-    if total_s:
-        print(f"device busy {all_s:.4f}s / wall {total_s:.4f}s "
-              f"({100*all_s/total_s:.0f}% occupancy)")
 
 
 # ---------------------------------------------------------------------------
@@ -195,41 +148,38 @@ def frame_model(
     s_pad: int,
     samples: int = 1,
 ):
-    """Minimal-work model of one MC frame on the jnp path (sphere scene,
-    parity quirks — the headline config).
+    """Minimal-work model of one MC frame (sphere scene, parity quirks —
+    the headline config).
 
     FLOPs per ray segment (models/integrator.py one bounce):
-      sphere quadratic vs s_pad spheres  ~30 each   (ops/geometry.py:92)
-      nearest-select + one-hot gathers   ~8*s_pad
+      sphere quadratic vs s_pad spheres  ~30 each   (ops/geometry.py)
+      nearest-select + material gathers  ~8*s_pad
       threefry2x32 sampling              ~250       (ops/sampling.py)
       frame transform + state update     ~120
-    HBM bytes per segment, *logical minimum*: one read + one write of
-    the live path state (o, d, throughput, radiance: 48 B each way).
-    XLA's actual layouts move more (a [R,3] stream occupies 3/128 lanes)
-    — `analyze_trace` measures that; this model is the floor.
+    Device-memory bytes, *minimum*: the whole-frame kernel keeps path
+    state in registers, so only the sample ids in and the radiance out
+    move (16 B per sample), plus the [H, W, 3] image.
     """
-    segments = width * height * samples * (1 + paths * max(depth - 1, 1))
+    samples_total = width * height * samples
+    segments = samples_total * (1 + paths * max(depth - 1, 1))
     flops_per_seg = 30 * s_pad + 8 * s_pad + 250 + 120
-    hbm_per_seg = 2 * 48
     return {
         "segments": segments,
         "flops": segments * flops_per_seg,
-        "hbm_bytes_min": segments * hbm_per_seg + width * height * 12,
+        "hbm_bytes_min": samples_total * 16 + width * height * 12,
     }
 
 
-def sol_summary(model: dict, seconds: float, peaks=PEAKS):
-    """MFU-style summary: achieved fraction of each ceiling + the binding
-    one. For elementwise render pipelines the VPU/HBM numbers are the
-    meaningful pair; mxu pct is reported for completeness."""
+def sol_summary(model: dict, seconds: float, peak: dict):
+    """Achieved fraction of the card's fp32 and memory ceilings, and the
+    binding one, for a modelled frame taking `seconds` of device time."""
     flops_s = model["flops"] / seconds
     bw = model["hbm_bytes_min"] / seconds
+    fp32, hbm = flops_s / peak["fp32"], bw / peak["hbm"]
     return {
-        "achieved_tflops": round(flops_s / 1e12, 3),
-        "vpu_sol_pct": round(100 * flops_s / peaks["vpu_f32"], 2),
-        "mxu_bf16_pct": round(100 * flops_s / peaks["mxu_bf16"], 3),
-        "hbm_min_gbps": round(bw / 1e9, 1),
-        "hbm_min_pct": round(100 * bw / peaks["hbm"], 2),
-        "bound": "vpu" if flops_s / peaks["vpu_f32"] > bw / peaks["hbm"]
-        else "hbm",
+        "achieved_tflops": flops_s / 1e12,
+        "fp32_sol_pct": 100 * fp32,
+        "hbm_min_gbps": bw / 1e9,
+        "hbm_min_pct": 100 * hbm,
+        "bound": "fp32" if fp32 > hbm else "hbm",
     }

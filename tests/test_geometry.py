@@ -120,3 +120,108 @@ def test_triangle_parity_negative_t_accepted():
     hits_c = nearest_triangle(o, d, v0, v1, v2, m, quirks=CLEAN)
     assert bool(hits_p.hit[0]) and float(hits_p.t[0]) == -5.0
     assert not bool(hits_c.hit[0])
+
+
+# ---------------------------------------------------------------------------
+# The brute-force mesh path (the XLA [rays, triangles] scan every mesh
+# scene takes): the semantics a mesh traversal must keep.
+# ---------------------------------------------------------------------------
+
+
+def _mesh(n=300, seed=4):
+    rng = np.random.default_rng(seed)
+    v0 = rng.uniform(-6, 6, (n, 3)).astype(np.float32)
+    v1 = v0 + rng.normal(size=(n, 3)).astype(np.float32) * 1.5
+    v2 = v0 + rng.normal(size=(n, 3)).astype(np.float32) * 1.5
+    m = np.ones((n,), np.float32)
+    m[-4:] = 0.0  # padding slots
+    return v0, v1, v2, m
+
+
+def _mesh_rays(n=512, seed=5):
+    rng = np.random.default_rng(seed)
+    o = np.zeros((n, 3), np.float32)
+    o[:, 2] = -14.0
+    d = np.concatenate([rng.uniform(-0.5, 0.5, (n, 2)), np.ones((n, 1))],
+                       axis=1).astype(np.float32)
+    return jnp.asarray(o), jnp.asarray(d)
+
+
+def test_mesh_first_minimum_tie_break_only_on_hits():
+    """Identical triangles tie exactly: the FIRST index wins (the
+    reference's strict-< scan, src/raytrace.h:176-186). Rays that hit
+    nothing report no hit and index 0 — a tie among the +inf 'no hit'
+    entries never produces a winner."""
+    tri = np.array([[-5, -1, 4], [5, -1, 4], [0, 5, 4]], np.float32)
+    far = tri + np.array([0, 0, 3], np.float32)
+    # table: [far, tri, far, tri, masked tri]
+    v = np.stack([far, tri, far, tri, tri])
+    m = jnp.asarray([1.0, 1.0, 1.0, 1.0, 0.0])
+    o, d = _rays(([0, 0, 0], [0, 0, 1]), ([0, 0, 0], [0, 0, -1]),
+                 ([40, 40, 0], [0, 0, 1]))
+    h = nearest_triangle(o, d, *(jnp.asarray(v[:, k]) for k in range(3)),
+                         m, quirks=CLEAN)
+    hit, idx = np.asarray(h.hit), np.asarray(h.index)
+    assert hit[0] and idx[0] == 1 and np.isclose(h.t[0], 4.0)
+    assert not hit[1] and idx[1] == 0  # both copies lie behind this ray
+    assert not hit[2] and idx[2] == 0 and not np.isfinite(h.t[2])
+
+
+def test_mesh_scan_permutation_invariant():
+    """Reordering the triangle table permutes the winning index and
+    leaves t and the hit mask unchanged."""
+    v0, v1, v2, m = _mesh()
+    o, d = _mesh_rays()
+    perm = np.random.default_rng(9).permutation(v0.shape[0])
+    a = nearest_triangle(o, d, v0, v1, v2, m, quirks=CLEAN)
+    b = nearest_triangle(o, d, v0[perm], v1[perm], v2[perm], m[perm],
+                         quirks=CLEAN)
+    hit = np.asarray(a.hit)
+    assert 0.1 < hit.mean() < 1.0
+    np.testing.assert_array_equal(hit, np.asarray(b.hit))
+    np.testing.assert_array_equal(np.asarray(a.t), np.asarray(b.t))
+    np.testing.assert_array_equal(np.asarray(a.index)[hit],
+                                  perm[np.asarray(b.index)[hit]])
+
+
+def test_mesh_occlusion_bounded_by_light_distance():
+    """Clean shadows count a triangle only strictly before the light
+    (t < t_max); parity's shadow() is unbounded and triangle-free."""
+    from skele_raytracer_tpu.config import RenderConfig
+    from skele_raytracer_tpu.ops.shading import _shadow_mask
+    from skele_raytracer_tpu.scene.types import make_scene
+
+    mat = dict(ambient=(0, 0, 0), diffuse=(1, 1, 1), specular=(0, 0, 0),
+               transmissive=(0, 0, 0), power=1.0, ior=1.0)
+    scene = make_scene(
+        triangles=[dict(v0=(-5, -5, 5), v1=(5, -5, 5), v2=(0, 5, 5), **mat)],
+        point_lights=[dict(position=(0, 0, 9), colour=(1, 1, 1))],
+        camera_direction=(0, 0, 1), camera_up=(0, 1, 0))
+    x = jnp.zeros((2, 3), jnp.float32)
+    n = jnp.asarray([[0, 0, 1], [0, 0, 1]], jnp.float32)
+    # light at z=9 behind the triangle (z=5), light at z=3 in front of it
+    l_vec = jnp.asarray([[[0, 0, 9]], [[0, 0, 3]]], jnp.float32)
+    dist = jnp.asarray([[9.0], [3.0]])
+    cfg = RenderConfig(quirks=CLEAN)
+    unsh = np.asarray(_shadow_mask(x, n, scene, cfg, l_vec, light_dist=dist))
+    assert unsh[:, 0].tolist() == [False, True]
+    unsh_p = np.asarray(_shadow_mask(x, n, scene, RenderConfig(), l_vec,
+                                     light_dist=dist))
+    assert unsh_p.all()
+
+
+def test_mesh_dead_rays_never_hit_and_leave_live_rays_alone():
+    """Zero-length directions (rays whose path died) hit nothing and
+    produce no NaN; mixing them into a batch leaves the live rays'
+    results bit-identical."""
+    v0, v1, v2, m = _mesh()
+    o, d = _mesh_rays(64)
+    live = nearest_triangle(o, d, v0, v1, v2, m, quirks=CLEAN)
+    d_mixed = d.at[::2].set(0.0)
+    mixed = nearest_triangle(o, d_mixed, v0, v1, v2, m, quirks=CLEAN)
+    hit = np.asarray(mixed.hit)
+    assert not hit[::2].any()
+    assert not np.isnan(np.asarray(mixed.t)).any()
+    for f in ("t", "index", "hit"):
+        np.testing.assert_array_equal(np.asarray(getattr(mixed, f))[1::2],
+                                      np.asarray(getattr(live, f))[1::2])

@@ -2,10 +2,11 @@
 
 Two golden sources:
 
-1. `/root/reference/renders/testcpu.ppm` — the only machine-readable
-   render the reference SHIPS (SURVEY §4): dragon.scn at the
-   `--parallel true` hardcodes (640x480, depth 1, no supersampling —
-   reference src/main.cpp:21-24).
+1. `renders/testcpu.ppm` of a checkout of the reference — the only
+   machine-readable render the reference SHIPS (SURVEY §4): dragon.scn
+   at the `--parallel true` hardcodes (640x480, depth 1, no supersampling
+   — reference src/main.cpp:21-24). The tests that read it run only when
+   SKT_REFERENCE_DIR names a reference checkout, and skip otherwise.
 
 2. `tests/goldens/*.ppm.gz` — renders produced by BUILDING AND RUNNING
    the reference binary here (tools/make_goldens.sh: SDL no-op stub for
@@ -26,6 +27,7 @@ silhouette/grazing pixels where one float ulp flips the quantized byte).
 
 import gzip
 import os
+import tempfile
 
 import numpy as np
 import pytest
@@ -37,19 +39,32 @@ from skele_raytracer_tpu.models.renderer import render_ids_chunked
 from skele_raytracer_tpu.scene.parser import parse_scene
 from skele_raytracer_tpu.utils.image import quantize, read_ppm
 
-GOLDEN = "/root/reference/renders/testcpu.ppm"
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
+SCENES = os.path.join(REPO, "scenes")
+
+
+def reference_render(name="testcpu.ppm"):
+    """Path of a render shipped with the reference checkout named by
+    SKT_REFERENCE_DIR; skips the calling test when the variable is unset
+    or the render is absent."""
+    root = os.environ.get("SKT_REFERENCE_DIR")
+    if not root:
+        pytest.skip("SKT_REFERENCE_DIR is unset (set it to a checkout of "
+                    "the reference to compare with its shipped render)")
+    path = os.path.join(root, "renders", name)
+    if not os.path.exists(path):
+        pytest.skip(f"reference render {path} not present")
+    return path
 
 
 def _read_ppm_gz(name):
     raw = gzip.decompress(open(os.path.join(GOLDEN_DIR, name), "rb").read())
-    tmp = os.path.join("/tmp", f"skt_golden_{os.getpid()}_{name[:-3]}")
-    with open(tmp, "wb") as f:
-        f.write(raw)
-    try:
+    with tempfile.TemporaryDirectory() as td:
+        tmp = os.path.join(td, name[:-3])
+        with open(tmp, "wb") as f:
+            f.write(raw)
         return read_ppm(tmp)
-    finally:
-        os.remove(tmp)
 
 
 def _check_sampled(ref, scene_file, cfg, min_exact=0.995, seed=0,
@@ -75,7 +90,8 @@ def test_dragon_matches_reference_golden():
         width=640, height=480, max_depth=1, use_shadows=False,
         rays_per_chunk=1 << 12,
     )
-    _check_sampled(read_ppm(GOLDEN), "/root/repo/scenes/dragon.scn", cfg)
+    _check_sampled(read_ppm(reference_render()),
+                   os.path.join(SCENES, "dragon.scn"), cfg)
 
 
 # (golden file, scene, shadows, w, h, depth) — all parity-mode, fov 60.
@@ -111,7 +127,7 @@ def test_matches_rebuilt_reference_binary(golden, scn, shadow, w, h, depth):
     # smaller sample keeps the default suite fast (the 20k-pixel dragon
     # audit is test_dragon_matches_reference_golden above).
     n = 6000 if scn == "dragon.scn" else 20000
-    _check_sampled(ref, f"/root/repo/scenes/{scn}", cfg, n_sample=n)
+    _check_sampled(ref, os.path.join(SCENES, scn), cfg, n_sample=n)
 
 
 # ---------------------------------------------------------------------------
@@ -156,7 +172,7 @@ def test_stochastic_mean_matches_reference_binary(golden, scn, params, n_pix):
     n_ref = int(data["n"])
     cfg = RenderConfig(rays_per_chunk=1 << 14, backend="jnp", **params)
     assert mu_r.shape == (cfg.height, cfg.width, 3)
-    scene = parse_scene(f"/root/repo/scenes/{scn}").to_scene(cfg.quirks)
+    scene = parse_scene(os.path.join(SCENES, scn)).to_scene(cfg.quirks)
 
     # Random pixel subset (all spp samples of each chosen pixel, so the
     # per-pixel supersample mean + quantization matches the PPM pipeline).

@@ -82,7 +82,7 @@ def _leaf(path):
         return obj
 
     def put(s, v):
-        # rebuild nested flax struct dataclasses immutably
+        # rebuild nested scene dataclasses immutably
         def rec(obj, i):
             if i == len(path) - 1:
                 return obj.replace(**{path[i]: v})

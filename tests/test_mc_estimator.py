@@ -2,7 +2,7 @@
 
 The reference's MC GI recursion is EXPONENTIAL: every bounce spawns
 `num_path_traces` child `shade` calls (src/raytrace.h:117-131), so gillum=P
-at depth 3 traces P^2 secondary rays per pixel. The TPU integrator
+at depth 3 traces P^2 secondary rays per pixel. The JAX integrator
 restructures this into P LINEAR continuation paths with telescoped
 throughput (models/integrator.py docstring: identical per-sample for
 depth <= 2, equal in expectation beyond). This module demonstrates the

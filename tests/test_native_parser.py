@@ -15,7 +15,9 @@ import pytest
 from skele_raytracer_tpu.scene import native
 from skele_raytracer_tpu.scene.parser import parse_scene_text
 
-SCENES = sorted(glob.glob("/root/repo/scenes/*.scn"))
+SCENES = sorted(glob.glob(os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "scenes", "*.scn")))
 
 
 pytestmark = pytest.mark.skipif(

@@ -1,184 +1,63 @@
-"""Pallas intersection kernels vs the jnp reference path.
-
-Runs in interpreter mode on CPU (the kernels auto-interpret off-TPU), so
-the kernel LOGIC — the MXU matmul reformulation of the sphere quadratic
-and of Moller-Trumbore, tile streaming, running-min accumulation, tie
-order — is validated without TPU hardware.
-"""
+"""backend="pallas" through the user-facing entry points: the whole-frame
+Triton path-trace kernel (run in the Pallas interpreter here) under
+shard_map and under jax.grad, vs the jnp backend."""
 
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 
-from skele_raytracer_tpu.config import CLEAN, PARITY, RenderConfig
+from skele_raytracer_tpu.config import CLEAN, RenderConfig
 from skele_raytracer_tpu.models.renderer import render_radiance
-from skele_raytracer_tpu.ops import geometry
-from skele_raytracer_tpu.ops.pallas import intersect as pk
-
-from conftest import make_mesh_scene
-
-
-def _rand_rays(n, seed=0, radius=10.0):
-    rng = np.random.default_rng(seed)
-    o = rng.uniform(-radius, radius, (n, 3)).astype(np.float32)
-    d = rng.normal(size=(n, 3)).astype(np.float32)
-    return jnp.asarray(o), jnp.asarray(d)
-
-
-def _rand_spheres(s, seed=1):
-    rng = np.random.default_rng(seed)
-    c = rng.uniform(-8, 8, (s, 3)).astype(np.float32)
-    r = rng.uniform(0.5, 3.0, (s,)).astype(np.float32)
-    m = np.ones((s,), np.float32)
-    m[-2:] = 0.0  # padded entries
-    return jnp.asarray(c), jnp.asarray(r), jnp.asarray(m)
-
-
-def _rand_triangles(t, seed=2, scale=6.0):
-    rng = np.random.default_rng(seed)
-    v0 = rng.uniform(-scale, scale, (t, 3)).astype(np.float32)
-    v1 = v0 + rng.normal(size=(t, 3)).astype(np.float32) * 2
-    v2 = v0 + rng.normal(size=(t, 3)).astype(np.float32) * 2
-    m = np.ones((t,), np.float32)
-    m[-3:] = 0.0
-    return jnp.asarray(v0), jnp.asarray(v1), jnp.asarray(v2), jnp.asarray(m)
-
-
-@pytest.mark.parametrize("quirks", [PARITY, CLEAN], ids=["parity", "clean"])
-def test_sphere_kernel_matches_jnp(quirks):
-    o, d = _rand_rays(1500)  # crosses the TILE_R boundary (padding path)
-    c, r, m = _rand_spheres(24)
-    ref = geometry.nearest_sphere(o, d, c, r, m, quirks=quirks)
-    t, idx, hit = pk.sphere_nearest(o, d, c, r, m, quirks=quirks)
-    np.testing.assert_array_equal(np.asarray(hit), np.asarray(ref.hit))
-    np.testing.assert_array_equal(
-        np.asarray(idx)[np.asarray(hit)], np.asarray(ref.index)[np.asarray(ref.hit)]
-    )
-    np.testing.assert_allclose(
-        np.asarray(t)[np.asarray(hit)],
-        np.asarray(ref.t)[np.asarray(ref.hit)],
-        rtol=2e-5, atol=1e-5,
-    )
-
-
-@pytest.mark.parametrize("quirks", [PARITY, CLEAN], ids=["parity", "clean"])
-def test_triangle_kernel_matches_jnp(quirks):
-    o, d = _rand_rays(1200, seed=5)
-    v0, v1, v2, m = _rand_triangles(700)  # crosses a TILE_T boundary... via tile_t=512
-    ref = geometry.nearest_triangle(o, d, v0, v1, v2, m, quirks=quirks)
-    t, idx, hit, u, v = pk.triangle_nearest(o, d, v0, v1, v2, m, quirks=quirks)
-    hit_np, rhit = np.asarray(hit), np.asarray(ref.hit)
-    # The matmul reformulation changes rounding; a borderline hit may flip.
-    agree = hit_np == rhit
-    assert agree.mean() > 0.995, f"hit masks differ on {(~agree).sum()} rays"
-    both = hit_np & rhit & agree
-    np.testing.assert_array_equal(np.asarray(idx)[both], np.asarray(ref.index)[both])
-    np.testing.assert_allclose(
-        np.asarray(t)[both], np.asarray(ref.t)[both], rtol=1e-3, atol=1e-3
-    )
-    np.testing.assert_allclose(
-        np.asarray(u)[both], np.asarray(ref.u)[both], rtol=1e-3, atol=1e-3
-    )
-
-
-def test_triangle_tile_streaming_first_wins():
-    # Two identical triangles in different tiles: the FIRST index must win,
-    # mirroring the reference's strict-< scan.
-    tri = np.array([[-5, -1, 4], [5, -1, 4], [0, 5, 4]], np.float32)
-    v0 = jnp.asarray(np.tile(tri[0], (600, 1)))
-    v1 = jnp.asarray(np.tile(tri[1], (600, 1)))
-    v2 = jnp.asarray(np.tile(tri[2], (600, 1)))
-    m = jnp.ones((600,))
-    o = jnp.zeros((4, 3))
-    d = jnp.asarray(np.tile(np.array([[0, 0, 1]], np.float32), (4, 1)))
-    t, idx, hit, _, _ = pk.triangle_nearest(o, d, v0, v1, v2, m, quirks=CLEAN)
-    assert bool(hit.all())
-    np.testing.assert_array_equal(np.asarray(idx), 0)
-    np.testing.assert_allclose(np.asarray(t), 4.0, rtol=1e-5)
+from skele_raytracer_tpu.ops.pallas import pathtrace
 
 
 def test_pallas_backend_under_shard_map(parsed_test_scene):
     """backend='pallas' inside render_sharded (shard_map needs
     check_vma=False for pallas_call outputs) must match the unsharded
     render."""
-    from skele_raytracer_tpu.config import CLEAN
     from skele_raytracer_tpu.models.renderer import render
     from skele_raytracer_tpu.parallel.api import render_sharded
 
     scene = parsed_test_scene.to_scene(CLEAN)
     cfg = RenderConfig(
-        width=24, height=16, use_shadows=True, max_depth=2, quirks=CLEAN,
-        rays_per_chunk=1 << 9, backend="pallas",
+        width=24, height=16, use_shadows=True, monte_carlo=True,
+        num_paths=2, max_depth=1, quirks=CLEAN, rays_per_chunk=1 << 9,
+        backend="pallas", interpret=True,
     )
+    assert pathtrace.use_pathtrace(scene, cfg)
     a = np.asarray(render(scene, cfg, seed=2))
     b = np.asarray(render_sharded(scene, cfg, seed=2))
     np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
 
 
 def test_pallas_backend_is_differentiable(parsed_test_scene):
-    """backend='pallas' + jax.grad must work (the kernels are forward-only;
-    the continuous t is replayed differentiably from the saved hit
-    structure) and agree with the jnp backend's gradients."""
-    import jax
-
-    from skele_raytracer_tpu.config import CLEAN
-
+    """backend='pallas' + jax.grad must work (the kernel is forward-only;
+    the custom_vjp replays the saved hit records in XLA) and agree with
+    the jnp backend's gradients."""
     scene = parsed_test_scene.to_scene(CLEAN)
     cfg = RenderConfig(
-        width=24, height=16, use_shadows=True, max_depth=1,
-        quirks=CLEAN, rays_per_chunk=1 << 9,
+        width=24, height=16, use_shadows=True, monte_carlo=True,
+        num_paths=1, max_depth=1, quirks=CLEAN, rays_per_chunk=1 << 9,
+        interpret=True,
     )
+    assert pathtrace.use_pathtrace(scene, cfg.replace(backend="pallas"))
 
     def loss(s, backend):
         img = render_radiance(s, cfg.replace(backend=backend), jnp.uint32(3))
         w = jnp.linspace(0.5, 1.5, img.size).reshape(img.shape)
         return jnp.sum(img * w)
 
-    g_jnp = jax.grad(lambda s: loss(s, "jnp"))(scene)
-    g_pl = jax.grad(lambda s: loss(s, "pallas"))(scene)
+    with jax.default_matmul_precision("highest"):
+        g_jnp = jax.grad(lambda s: loss(s, "jnp"))(scene)
+        g_pl = jax.grad(lambda s: loss(s, "pallas"))(scene)
     for a, b in zip(
         jax.tree_util.tree_leaves(g_jnp), jax.tree_util.tree_leaves(g_pl)
     ):
         np.testing.assert_allclose(
             np.asarray(a), np.asarray(b), rtol=1e-3, atol=1e-4
         )
-
-
-@pytest.mark.slow
-def test_culled_backend_grad_flows_to_vertices():
-    """The culled (mesh-scale) kernel path under jax.grad: triangle-vertex
-    gradients flow via the hit-structure replay and match the jnp scan."""
-    import jax
-
-    from skele_raytracer_tpu.config import CLEAN
-
-    scene = make_mesh_scene()
-    assert scene.clusters is not None and scene.clusters.n_clusters > 4
-    cfg = RenderConfig(
-        width=16, height=12, use_shadows=True, max_depth=1,
-        quirks=CLEAN, rays_per_chunk=1 << 9,
-    )
-
-    def loss(s, backend):
-        img = render_radiance(s, cfg.replace(backend=backend), jnp.uint32(5))
-        return jnp.sum(img * img)
-
-    g_jnp = jax.grad(lambda s: loss(s, "jnp"))(scene)
-    g_pl = jax.grad(lambda s: loss(s, "pallas"))(scene)
-    gv_jnp = np.asarray(g_jnp.triangles.v0)
-    gv_pl = np.asarray(g_pl.triangles.v0)
-    assert np.isfinite(gv_pl).all()
-    assert np.abs(gv_pl).max() > 0
-    # Hit structures can differ on a few borderline rays (different float
-    # paths); require agreement on the overwhelming majority of entries.
-    close = np.isclose(gv_jnp, gv_pl, rtol=1e-3, atol=1e-5)
-    assert close.mean() > 0.99, f"{(~close).sum()} vertex-grad entries differ"
-    # Material gradients are structure-independent and must agree tightly.
-    np.testing.assert_allclose(
-        np.asarray(g_jnp.triangles.diffuse), np.asarray(g_pl.triangles.diffuse),
-        rtol=1e-3, atol=1e-5,
-    )
 
 
 @pytest.mark.slow
@@ -189,8 +68,7 @@ def test_pallas_backend_renders_same_image(parsed_test_scene):
         num_paths=2, max_depth=2, rays_per_chunk=1 << 10,
     )
     img_jnp = np.asarray(render_radiance(scene, base, jnp.uint32(4)))
-    img_pl = np.asarray(
-        render_radiance(scene, base.replace(backend="pallas"), jnp.uint32(4))
-    )
+    img_pl = np.asarray(render_radiance(
+        scene, base.replace(backend="pallas", interpret=True), jnp.uint32(4)))
     close = np.isclose(img_jnp, img_pl, rtol=1e-4, atol=1e-4)
     assert close.mean() > 0.995, f"{(~close).sum()} px differ"

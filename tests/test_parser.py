@@ -1,5 +1,7 @@
 """Parser semantics tests (grammar + quirks, scene/parser.py)."""
 
+import os
+
 import numpy as np
 
 from skele_raytracer_tpu import CLEAN, PARITY
@@ -103,7 +105,9 @@ def test_real_scenes_parse(parsed_spheres1):
     assert len(parsed_spheres1.spheres) == 4
     assert len(parsed_spheres1.triangles) == 2
     assert len(parsed_spheres1.point_lights) == 2
-    dragon = open("/root/repo/scenes/dragon.scn").read()
+    from conftest import SCENES
+
+    dragon = open(os.path.join(SCENES, "dragon.scn")).read()
     p = parse_scene_text(dragon)
     assert len(p.triangles) == 10002  # SURVEY.md: dragon = 10,002 tris
     assert len(p.directional_lights) == 1

@@ -1,12 +1,16 @@
-"""Whole-frame path-trace Pallas kernel (ops/pallas/pathtrace.py) vs the
-differentiable jnp wavefront path: value equivalence across quirk modes,
-dispatch gating, gradient identity, and partition invariance.
+"""Whole-frame path-trace kernel (ops/pallas/pathtrace.py) vs the
+differentiable jnp wavefront path: value equivalence across quirk modes
+and scene features, and partition invariance.
 
 The kernel reimplements the reference's sphere-scene hot loop
 (src/raytrace.h:139-227, src/utils.h:87-121, src/blinn_phong.h) in one
 pallas_call; these tests pin it to models/integrator.integrate_linear,
-which is itself oracle-verified (tests/test_render_parity.py).
+which is itself oracle-verified (tests/test_render_parity.py). Each case
+runs twice: in the Pallas interpreter (here, on the CPU) and compiled
+through Triton (`gpu`-marked: on the card, via `python chip_smoke.py`).
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -21,6 +25,9 @@ from skele_raytracer_tpu.models.renderer import (
 )
 from skele_raytracer_tpu.ops.pallas import pathtrace
 from skele_raytracer_tpu.scene.parser import parse_scene, parse_scene_text
+from skele_raytracer_tpu.scene.types import make_scene
+
+from conftest import SCENES, TEST_SCN, TEST_SCN_FOG
 
 SPHERES_SCN = """
 camera -6 2 -4 .77 0 .64 0 1 0 35
@@ -40,123 +47,48 @@ ambient_light .25 .25 .25
 max_depth 5
 """
 
+# TEST_SCN's spheres lit by a directional light only (clean mode keeps
+# directional lights; parity drops them at parse, src/scene.cpp:139-163).
+DIRECTIONAL_SCN = "\n".join(
+    line for line in TEST_SCN.splitlines()
+    if not line.startswith(("point_light", "vertex", "triangle")))
 
-@pytest.fixture(scope="module")
-def parsed_spheres():
-    return parse_scene_text(SPHERES_SCN)
+
+@pytest.fixture(params=["interpret", pytest.param("gpu", marks=pytest.mark.gpu)])
+def mode(request):
+    """How the kernel runs: in the Pallas interpreter, or compiled for
+    the card (skips without one; see conftest.gpu)."""
+    if request.param == "gpu":
+        request.getfixturevalue("gpu")
+    return request.param
 
 
-def _compare(parsed, cfg, seed=7, frac_tol=0.005, atol=1e-4):
-    """Kernel vs jnp radiance. Mosaic transcendental lowering can flip a
-    grazing hit by 1 ulp, so a small fraction of samples may differ
-    discretely; everything else must match to float tolerance."""
-    scene = parsed.to_scene(cfg.quirks)
+def _compare(scene, cfg, mode, seed=7, frac_tol=0.005, atol=1e-4):
+    """Kernel vs jnp radiance. Transcendental lowering and the GPU
+    compiler's FMA contraction can flip a grazing hit by 1 ulp, so up to
+    0.5% of values may differ discretely; everything else must match to
+    1e-4, and the frame means to 5e-4 (the flips must stay rare enough
+    not to move them). The jnp side runs at HIGHEST matmul precision so
+    no TF32 enters the reference's one-hot gathers."""
+    cfg = cfg.replace(backend="pallas", interpret=mode == "interpret")
     assert pathtrace.use_pathtrace(scene, cfg), "kernel must serve this config"
     n = cfg.width * cfg.height * cfg.samples_per_pixel
     ids = jnp.arange(n, dtype=jnp.uint32)
     a = np.asarray(render_ids_chunked(scene, cfg, jnp.uint32(seed), ids))
-    b = np.asarray(render_ids_chunked_jnp(scene, cfg, jnp.uint32(seed), ids))
+    with jax.default_matmul_precision("highest"):
+        b = np.asarray(render_ids_chunked_jnp(scene, cfg, jnp.uint32(seed),
+                                              ids))
+    assert a.shape == b.shape == (n, 3)
+    assert np.isfinite(a).all()
     err = np.abs(a - b)
     frac_bad = (err > atol).mean()
     assert frac_bad <= frac_tol, (
         f"{frac_bad:.2%} of values differ (max {err.max():.3e})"
     )
-    # discrete flips must stay rare enough not to move the frame mean
     assert np.allclose(a.mean(0), b.mean(0), atol=5e-4)
 
 
-CFG = dict(width=24, height=16, use_shadows=True, backend="pallas")
-
-
-class TestSmoke:
-    """Minimal kernel-vs-jnp check that stays in the fast default suite;
-    the exhaustive audits below are `slow` (interpret-mode kernels on the
-    CPU mesh take minutes each — run with `pytest -m slow`)."""
-
-    def test_small_parity_blinn_phong(self, parsed_spheres):
-        _compare(parsed_spheres, RenderConfig(
-            width=16, height=8, use_shadows=True, backend="pallas"))
-
-
-class TestEquivalence:
-    pytestmark = [pytest.mark.slow]
-    def test_parity_mc_depth2(self, parsed_spheres):
-        _compare(parsed_spheres, RenderConfig(
-            monte_carlo=True, num_paths=4, max_depth=2, **CFG))
-
-    def test_parity_plain_blinn_phong(self, parsed_spheres):
-        _compare(parsed_spheres, RenderConfig(**CFG))
-
-    def test_parity_mc_supersampled_depth3(self, parsed_spheres):
-        _compare(parsed_spheres, RenderConfig(
-            grid_size=2, monte_carlo=True, num_paths=3, max_depth=3, **CFG))
-
-    def test_clean_mc_depth2_shadows(self, parsed_spheres):
-        _compare(parsed_spheres, RenderConfig(
-            monte_carlo=True, num_paths=4, max_depth=2, quirks=CLEAN, **CFG))
-
-    def test_clean_mc_stratified_depth3(self, parsed_spheres):
-        _compare(parsed_spheres, RenderConfig(
-            grid_size=2, monte_carlo=True, num_paths=2, max_depth=3,
-            quirks=CLEAN, **CFG))
-
-    def test_no_shadows(self, parsed_spheres):
-        _compare(parsed_spheres, RenderConfig(
-            width=24, height=16, monte_carlo=True, num_paths=2, max_depth=2,
-            backend="pallas"))
-
-    def test_triangles_parity_black(self, parsed_test_scene):
-        """TEST_SCN carries 2 decorative triangles: parity shades them
-        black (src/raytrace.h:221-224) and they never occlude shadows."""
-        _compare(parsed_test_scene, RenderConfig(
-            monte_carlo=True, num_paths=4, max_depth=2, **CFG))
-
-    def test_triangles_clean_shading(self, parsed_test_scene):
-        """Clean mode shades triangles (geometric normal flipped toward
-        the ray) and lets them occlude shadow rays in-kernel."""
-        _compare(parsed_test_scene, RenderConfig(
-            monte_carlo=True, num_paths=4, max_depth=2, quirks=CLEAN, **CFG))
-
-    def test_triangles_clean_nonmc(self, parsed_test_scene):
-        _compare(parsed_test_scene, RenderConfig(
-            monte_carlo=True, num_paths=2, max_depth=3, quirks=CLEAN, **CFG))
-
-    def test_triangle_grads(self, parsed_test_scene):
-        """Replay backward through triangle hits (replay_triangle_t +
-        triangle-table material gather) matches the jnp gradients."""
-        cfg = RenderConfig(width=12, height=8, monte_carlo=True, num_paths=2,
-                           max_depth=2, use_shadows=True, backend="pallas",
-                           quirks=CLEAN)
-        scene = parsed_test_scene.to_scene(CLEAN)
-        ids = jnp.arange(12 * 8, dtype=jnp.uint32)
-
-        def loss(s, c):
-            return jnp.sum(render_ids_chunked(s, c, jnp.uint32(3), ids) ** 2)
-
-        g_pallas = jax.grad(loss)(scene, cfg)
-        g_jnp = jax.grad(loss)(scene, cfg.replace(backend="jnp"))
-        for a, b in zip(jax.tree_util.tree_leaves(g_pallas),
-                        jax.tree_util.tree_leaves(g_jnp)):
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                       rtol=1e-3, atol=1e-5)
-
-    def test_spheres2_parity_fog_zeroed(self):
-        # The headline scene: parity zeroes the fog (quirk
-        # fog_sscanf_mismatch), which statically folds away the whole
-        # point-light block (ops/shading.py) — the kernel must take the
-        # same ambient-only shading path.
-        parsed = parse_scene("/root/repo/scenes/spheres2.scn")
-        cfg = RenderConfig(
-            width=32, height=18, monte_carlo=True, num_paths=16, max_depth=2,
-            use_shadows=True, backend="pallas")
-        scene = parsed.to_scene(cfg.quirks)
-        assert scene.fog_zeroed and not scene.has_triangles
-        _compare(parsed, cfg)
-
-
-def _many_sphere_scene(n=128, seed=3):
-    from skele_raytracer_tpu.scene.types import make_scene
-
+def _many_sphere_scene(n=128, seed=3, triangles=(), directional=()):
     rng = np.random.default_rng(seed)
     spheres = []
     for _ in range(n):
@@ -169,7 +101,8 @@ def _many_sphere_scene(n=128, seed=3):
             specular=tuple(rng.uniform(0, .5, 3)), transmissive=(0, 0, 0),
             power=float(rng.uniform(2, 40)), ior=1.2))
     return make_scene(
-        spheres=spheres,
+        spheres=spheres, triangles=list(triangles),
+        directional_lights=list(directional),
         point_lights=[dict(position=(0, 30, -20), colour=(500, 500, 500)),
                       dict(position=(-10, 10, 0), colour=(100, 80, 60))],
         ambient=(0.2, 0.2, 0.2), camera_position=(0, 3, -24),
@@ -177,294 +110,95 @@ def _many_sphere_scene(n=128, seed=3):
         background=(.05, .1, .15))
 
 
-class TestLoopModeSpheres:
-    """S > _UNROLL_SPHERES runs the kernel's scans as fori_loops over
-    dynamic SMEM reads (the reference's brute-force sphere scan,
-    src/raytrace.h:152-166, imposes no such limit — neither does the
-    fast path now). Forward-only: gradients re-derive through the jnp
-    wavefront (_can_replay gate)."""
+_MC = dict(monte_carlo=True, num_paths=2, max_depth=2)
+_TRI_MAT = dict(ambient=(0.2, 0.1, 0.1), diffuse=(0.7, 0.3, 0.2),
+                specular=(0.2, 0.2, 0.2), transmissive=(0, 0, 0),
+                power=8.0, ior=1.0)
 
-    pytestmark = [pytest.mark.slow]
-
-    def test_128_sphere_equivalence(self):
-        scene = _many_sphere_scene(128)
-        cfg = RenderConfig(width=8, height=6, monte_carlo=True, num_paths=2,
-                           max_depth=2, use_shadows=True, backend="pallas",
-                           rays_per_chunk=1 << 10)
-        assert pathtrace.use_pathtrace(scene, cfg)
-        assert not pathtrace._can_replay(scene, cfg)
-        ids = jnp.arange(8 * 6, dtype=jnp.uint32)
-        a = np.asarray(render_ids_chunked(scene, cfg, jnp.uint32(5), ids))
-        b = np.asarray(render_ids_chunked_jnp(scene, cfg, jnp.uint32(5), ids))
-        err = np.abs(a - b)
-        assert (err > 1e-3).mean() <= 0.01, err.max()
-
-    def test_loop_mode_with_decorative_triangles(self):
-        """Loop-mode sphere scans compose with the unrolled triangle
-        scan and triangle shadow occlusion (a >64-sphere scene that
-        also carries a few decorative triangles, clean mode so the
-        triangles shade and occlude)."""
-        from skele_raytracer_tpu.scene.types import make_scene
-
-        rng = np.random.default_rng(5)
-        spheres = []
-        for _ in range(80):
-            c = rng.uniform(-6, 6, 3)
-            c[1] = abs(c[1])
-            spheres.append(dict(
-                center=tuple(c), radius=float(rng.uniform(0.3, 0.8)),
-                ambient=tuple(rng.uniform(0, .3, 3)),
-                diffuse=tuple(rng.uniform(0, 1, 3)),
-                specular=tuple(rng.uniform(0, .5, 3)),
-                transmissive=(0, 0, 0),
-                power=float(rng.uniform(2, 40)), ior=1.2))
-        mat = dict(ambient=(0.2, 0.1, 0.1), diffuse=(0.7, 0.3, 0.2),
-                   specular=(0.2, 0.2, 0.2), transmissive=(0, 0, 0),
-                   power=8.0, ior=1.0)
-        tris = [dict(v0=(-8, 0, 4), v1=(8, 0, 4), v2=(0, 10, 4), **mat),
-                dict(v0=(-4, 0, -6), v1=(4, 0, -6), v2=(0, 6, -6), **mat)]
-        scene = make_scene(
-            spheres=spheres, triangles=tris,
-            point_lights=[dict(position=(0, 25, -15),
-                               colour=(400, 400, 400))],
-            ambient=(0.2, 0.2, 0.2), camera_position=(0, 3, -20),
-            camera_direction=(0, 0, 1), camera_up=(0, 1, 0),
-            background=(.05, .1, .15))
-        cfg = RenderConfig(width=8, height=6, monte_carlo=True, num_paths=2,
-                           max_depth=2, use_shadows=True, backend="pallas",
-                           rays_per_chunk=1 << 10, quirks=CLEAN)
-        assert pathtrace.use_pathtrace(scene, cfg)
-        assert not pathtrace._can_replay(scene, cfg)
-        ids = jnp.arange(8 * 6, dtype=jnp.uint32)
-        a = np.asarray(render_ids_chunked(scene, cfg, jnp.uint32(4), ids))
-        b = np.asarray(render_ids_chunked_jnp(scene, cfg, jnp.uint32(4), ids))
-        err = np.abs(a - b)
-        assert (err > 1e-3).mean() <= 0.02, err.max()
-
-    def test_128_sphere_grads_via_jnp_fallback(self):
-        scene = _many_sphere_scene(128)
-        cfg = RenderConfig(width=8, height=6, monte_carlo=True, num_paths=2,
-                           max_depth=2, use_shadows=True, backend="pallas",
-                           rays_per_chunk=1 << 10)
-        ids = jnp.arange(8 * 6, dtype=jnp.uint32)
-        g = jax.grad(lambda s: jnp.sum(
-            render_ids_chunked(s, cfg, jnp.uint32(5), ids) ** 2))(scene)
-        leaves = [np.asarray(x) for x in jax.tree_util.tree_leaves(g)]
-        assert all(np.isfinite(x).all() for x in leaves)
-        assert np.abs(np.asarray(g.spheres.diffuse)).max() > 0
+# (scene source, quirks, config overrides). Scene sources: scene text, or
+# a callable building the Scene.
+CASES = {
+    "parity_blinn_phong": (SPHERES_SCN, None, dict()),
+    "parity_shadows": (SPHERES_SCN, None, dict(use_shadows=True)),
+    "parity_jsample2": (SPHERES_SCN, None,
+                        dict(grid_size=2, use_shadows=True)),
+    "parity_mc_depth2": (SPHERES_SCN, None, dict(use_shadows=True, **_MC)),
+    "parity_mc_depth3": (SPHERES_SCN, None, dict(
+        use_shadows=True, monte_carlo=True, num_paths=2, max_depth=3)),
+    "clean_mc_stratified_depth3": (SPHERES_SCN, CLEAN, dict(
+        grid_size=2, use_shadows=True, monte_carlo=True, num_paths=2,
+        max_depth=3)),
+    "clean_fog": (TEST_SCN_FOG, CLEAN, dict(use_shadows=True, **_MC)),
+    "parity_zeroed_fog": (TEST_SCN_FOG, None, dict(use_shadows=True, **_MC)),
+    "triangles_parity": (TEST_SCN, None, dict(use_shadows=True, **_MC)),
+    "triangles_clean": (TEST_SCN, CLEAN, dict(use_shadows=True, **_MC)),
+    "directional_lights_clean": (DIRECTIONAL_SCN, CLEAN, dict(
+        use_shadows=True, monte_carlo=True, num_paths=2, max_depth=1)),
+    "loop_mode_spheres": (
+        lambda: _many_sphere_scene(80, triangles=[
+            dict(v0=(-8, 0, 4), v1=(8, 0, 4), v2=(0, 10, 4), **_TRI_MAT)],
+            directional=[dict(direction=(-1, 2, -1), colour=(.4, .4, .3))]),
+        CLEAN, dict(width=8, height=6, use_shadows=True, **_MC)),
+    "partial_block": (SPHERES_SCN, None, dict(
+        width=15, height=11, use_shadows=True, **_MC)),
+}
 
 
-class TestDispatch:
-    def test_sphere_count_envelope_gates(self):
-        """Dispatch gates across the sphere-count envelope: unrolled
-        kernel to _UNROLL_SPHERES, fori_loop kernel to MAX_SPHERES, jnp
-        wavefront beyond (the reference's brute force,
-        src/raytrace.h:152-166, silently scales; so must we). Value
-        checks for the loop regime live in TestLoopModeSpheres; here the
-        >MAX_SPHERES fallback additionally renders (cheap jnp path)."""
-        cfg = RenderConfig(width=8, height=6, monte_carlo=True, num_paths=2,
-                           max_depth=2, use_shadows=True, backend="pallas",
-                           rays_per_chunk=1 << 10)
-        for n, served, replay in ((48, True, True), (96, True, False),
-                                  (300, False, False)):
-            scene = _many_sphere_scene(n)
-            assert pathtrace.use_pathtrace(scene, cfg) == served, n
-            assert pathtrace._can_replay(scene, cfg) == replay, n
-        ids = jnp.arange(8 * 6, dtype=jnp.uint32)
-        r = np.asarray(render_ids_chunked(
-            _many_sphere_scene(300), cfg, jnp.uint32(2), ids))
-        assert np.isfinite(r).all() and r.std() > 0
-
-    def test_gates(self, parsed_spheres, parsed_test_scene):
-        from tests.conftest import make_mesh_scene
-
-        cfg = RenderConfig(monte_carlo=True, num_paths=2, max_depth=2,
-                           backend="pallas")
-        sph = parsed_spheres.to_scene(cfg.quirks)
-        assert pathtrace.use_pathtrace(sph, cfg)
-        # jnp backend opts out
-        assert not pathtrace.use_pathtrace(sph, cfg.replace(backend="jnp"))
-        # a few decorative triangles are served in-kernel...
-        tri = parsed_test_scene.to_scene(cfg.quirks)
-        assert pathtrace.use_pathtrace(tri, cfg)
-        # ...but mesh-scale scenes route through the culled kernels
-        mesh = make_mesh_scene(t=700)
-        assert not pathtrace.use_pathtrace(mesh, cfg)
-        # the clean Whitted frontier (non-MC, reflections on) is not served
-        clean_whitted = RenderConfig(backend="pallas", quirks=CLEAN)
-        sph_c = parsed_spheres.to_scene(CLEAN)
-        assert not pathtrace.use_pathtrace(sph_c, clean_whitted)
-
-    @pytest.mark.slow
-    def test_real_fog_served_in_kernel(self, parsed_fog_scene):
-        """Value-bearing fog is shaded IN-KERNEL (up to MAX_FOG
-        volumes): both per-point-light terms reroute through the fog term
-        with the sampling.uniform (L, F, 4, 2) draw streams
-        (src/blinn_phong.h:56-66,104-110). Equivalence vs the jnp path
-        covers the interaction branch, the perturbed-direction albedo
-        branch, and the prim-center distance term."""
-        _compare(parsed_fog_scene, RenderConfig(
-            monte_carlo=True, num_paths=3, max_depth=2, quirks=CLEAN,
-            width=24, height=16, use_shadows=True, backend="pallas"))
-
-    @pytest.mark.slow
-    def test_fog_grads_match_jnp(self, parsed_fog_scene):
-        """Gradients through the in-kernel fog shading (analytic
-        backward) match the jnp path — including the fog leaves
-        (albedo/scattering/absorption map back via _pack_tables' vjp)."""
-        cfg = RenderConfig(width=12, height=8, monte_carlo=True, num_paths=2,
-                           max_depth=2, use_shadows=True, backend="pallas",
-                           quirks=CLEAN)
-        scene = parsed_fog_scene.to_scene(CLEAN)
-        assert pathtrace.use_pathtrace(scene, cfg)
-        ids = jnp.arange(12 * 8, dtype=jnp.uint32)
-
-        def loss(s, c):
-            r = render_ids_chunked(s, c, jnp.uint32(3), ids)
-            return jnp.sum(r * r)
-
-        gk = jax.grad(lambda s: loss(s, cfg))(scene)
-        gj = jax.grad(lambda s: loss(s, cfg.replace(backend="jnp")))(scene)
-        for a, b in zip(jax.tree_util.tree_leaves(gk),
-                        jax.tree_util.tree_leaves(gj)):
-            a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
-            if a.size == 0:
-                continue
-            scale = max(np.abs(b).max(), 1e-6)
-            np.testing.assert_allclose(a, b, atol=2e-3 * scale)
+@pytest.mark.parametrize("case", list(CASES))
+def test_kernel_matches_jnp(case, mode):
+    src, quirks, over = CASES[case]
+    cfg = RenderConfig(**{"width": 16, "height": 8, **over})
+    if quirks is not None:
+        cfg = cfg.replace(quirks=quirks)
+    scene = (src() if callable(src)
+             else parse_scene_text(src).to_scene(cfg.quirks))
+    if case == "parity_zeroed_fog":
+        assert scene.fog_zeroed
+    if case == "loop_mode_spheres":
+        assert scene.spheres.mask.shape[0] > pathtrace._UNROLL_SPHERES
+    if case == "partial_block":
+        assert (cfg.width * cfg.height) % pathtrace.BLOCK != 0
+    _compare(scene, cfg, mode)
 
 
-class TestGradients:
-    pytestmark = [pytest.mark.slow]
-    def test_grad_matches_jnp_backend(self, parsed_spheres):
-        """The custom_vjp recomputes through the jnp path, so the gradient
-        FORMULA is identical to backend="jnp"; the only difference is the
-        incoming cotangent 2*r, where r is the kernel's (float-tolerance)
-        forward — so grads agree to that same tolerance."""
-        cfg = RenderConfig(width=12, height=8, monte_carlo=True, num_paths=2,
-                           max_depth=2, use_shadows=True, backend="pallas")
-        scene = parsed_spheres.to_scene(cfg.quirks)
-        ids = jnp.arange(12 * 8, dtype=jnp.uint32)
+class TestSmoke:
+    def test_small_parity_blinn_phong(self):
+        scene = parse_scene_text(SPHERES_SCN).to_scene()
+        _compare(scene, RenderConfig(width=16, height=8, use_shadows=True),
+                 "interpret")
 
-        def loss(s, c):
-            r = render_ids_chunked(s, c, jnp.uint32(3), ids)
-            return jnp.sum(r * r)
 
-        g_pallas = jax.grad(loss)(scene, cfg)
-        g_jnp = jax.grad(loss)(scene, cfg.replace(backend="jnp"))
-        for a, b in zip(jax.tree_util.tree_leaves(g_pallas),
-                        jax.tree_util.tree_leaves(g_jnp)):
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                       rtol=1e-3, atol=1e-5)
-
-    def test_grad_matches_jnp_backend_clean(self, parsed_spheres):
-        """Clean mode exercises normal-offset origins, bounded shadows,
-        and the directional-light bits in the replay."""
-        cfg = RenderConfig(width=12, height=8, monte_carlo=True, num_paths=2,
-                           max_depth=2, use_shadows=True, backend="pallas",
-                           quirks=CLEAN)
-        scene = parsed_spheres.to_scene(CLEAN)
-        ids = jnp.arange(12 * 8, dtype=jnp.uint32)
-
-        def loss(s, c):
-            r = render_ids_chunked(s, c, jnp.uint32(3), ids)
-            return jnp.sum(r * r)
-
-        g_pallas = jax.grad(loss)(scene, cfg)
-        g_jnp = jax.grad(loss)(scene, cfg.replace(backend="jnp"))
-        for a, b in zip(jax.tree_util.tree_leaves(g_pallas),
-                        jax.tree_util.tree_leaves(g_jnp)):
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                       rtol=1e-3, atol=1e-5)
-
-    def test_replay_value_matches_kernel(self, parsed_spheres):
-        """The saved hit records replayed through the differentiable jnp
-        chain must reproduce the kernel's own radiance (same structure,
-        same math — only float-tolerance apart)."""
-        cfg = RenderConfig(width=16, height=12, monte_carlo=True, num_paths=3,
-                           max_depth=3, use_shadows=True, backend="pallas")
-        scene = parsed_spheres.to_scene(cfg.quirks)
-        ids = jnp.arange(16 * 12, dtype=jnp.uint32)
-        assert pathtrace._can_replay(scene, cfg)
-        radiance, rec = pathtrace._pathtrace_call(
-            scene, cfg, jnp.uint32(9), ids, with_records=True)
-        replayed = pathtrace._replay_chunked(
-            scene, cfg, jnp.uint32(9), ids, rec)
-        np.testing.assert_allclose(np.asarray(replayed), np.asarray(radiance),
-                                   rtol=1e-4, atol=1e-5)
-
-    def test_fixed_topology_fd_matches_analytic(self, parsed_spheres):
-        """The falsifiable geometry-gradient check (BASELINE.md
-        'pixel-grad parity ... allclose'): freeze the forward's hit
-        records and central-FD the differentiable replay wrt sphere
-        centres. At fixed hit topology the pixel function is smooth —
-        no silhouette caveat applies — so autodiff of the replay (the
-        exact function the production Pallas backward differentiates)
-        must match FD to first order."""
-        cfg = RenderConfig(width=12, height=8, monte_carlo=True, num_paths=2,
-                           max_depth=2, use_shadows=True, backend="pallas")
-        scene = parsed_spheres.to_scene(cfg.quirks)
-        ids = jnp.arange(12 * 8, dtype=jnp.uint32)
-        _, rec = pathtrace._pathtrace_call(
-            scene, cfg, jnp.uint32(9), ids, with_records=True)
-        rec = jax.lax.stop_gradient(rec)
-        # Freeze the remaining discrete selection too: the tangent-frame
-        # branch bits at the base scene (a flip under perturbation is a
-        # jump discontinuity FD would integrate as constant-in-eps bias).
-        bits = pathtrace.replay_frame_bits(scene, cfg, jnp.uint32(9), ids,
-                                           rec)
-
-        def loss(s):
-            r = pathtrace._replay_chunked(s, cfg, jnp.uint32(9), ids, rec,
-                                          frame_bits=bits)
-            w = jnp.linspace(0.5, 1.5, r.size).reshape(r.shape)
-            return jnp.sum(r * w)
-
-        loss_j = jax.jit(loss)
-        ga = np.asarray(jax.grad(loss)(scene).spheres.center, np.float64)
-        base = np.asarray(scene.spheres.center, np.float64)
-        mask = np.asarray(scene.spheres.mask) > 0
-        eps = 1e-2
-        fd = np.zeros_like(base)
-        for i in range(base.shape[0]):
-            if not mask[i]:
-                continue
-            for j in range(base.shape[1]):
-                d = np.zeros_like(base)
-                d[i, j] = eps
-                sp = scene.replace(spheres=scene.spheres.replace(
-                    center=jnp.asarray(base + d, jnp.float32)))
-                sm = scene.replace(spheres=scene.spheres.replace(
-                    center=jnp.asarray(base - d, jnp.float32)))
-                fd[i, j] = (float(loss_j(sp)) - float(loss_j(sm))) / (2 * eps)
-        num = np.linalg.norm((ga - fd)[mask])
-        den = max(np.linalg.norm(fd[mask]), 1e-9)
-        assert num / den < 1e-2, (num / den, ga, fd)
-
-    def test_grads_finite_and_nonzero(self, parsed_spheres):
-        cfg = RenderConfig(width=12, height=8, monte_carlo=True, num_paths=2,
-                           max_depth=2, use_shadows=True, backend="pallas")
-        scene = parsed_spheres.to_scene(cfg.quirks)
-        ids = jnp.arange(12 * 8, dtype=jnp.uint32)
-        g = jax.grad(lambda s: jnp.sum(
-            render_ids_chunked(s, cfg, jnp.uint32(3), ids) ** 2))(scene)
-        leaves = [np.asarray(x) for x in jax.tree_util.tree_leaves(g)]
-        assert all(np.isfinite(x).all() for x in leaves)
-        assert any(np.abs(x).sum() > 0 for x in leaves)
+@pytest.mark.slow
+def test_spheres2_parity_fog_zeroed():
+    # The headline scene: parity zeroes the fog (quirk
+    # fog_sscanf_mismatch), which statically folds away the whole
+    # point-light block (ops/shading.py) — the kernel must take the
+    # same ambient-only shading path.
+    parsed = parse_scene(os.path.join(SCENES, "spheres2.scn"))
+    cfg = RenderConfig(width=32, height=18, monte_carlo=True, num_paths=16,
+                       max_depth=2, use_shadows=True)
+    scene = parsed.to_scene(cfg.quirks)
+    assert scene.fog_zeroed and not scene.has_triangles
+    _compare(scene, cfg, "interpret")
 
 
 class TestSharded:
     pytestmark = [pytest.mark.slow]
-    def test_sharded_render_matches_single_device(self, parsed_spheres):
+
+    def test_sharded_render_matches_single_device(self):
         """The kernel path composes with shard_map: an 8-device mesh
         renders the same frame (per-ray values are partition-independent;
         the final stack/mean ops may reassociate by an ulp)."""
         from skele_raytracer_tpu.models.renderer import render_radiance
-        from skele_raytracer_tpu.parallel.api import make_mesh, render_radiance_sharded
+        from skele_raytracer_tpu.parallel.api import (
+            make_mesh,
+            render_radiance_sharded,
+        )
 
         cfg = RenderConfig(width=16, height=12, monte_carlo=True, num_paths=2,
-                           max_depth=2, use_shadows=True, backend="pallas")
-        scene = parsed_spheres.to_scene(cfg.quirks)
+                           max_depth=2, use_shadows=True, backend="pallas",
+                           interpret=True)
+        scene = parse_scene_text(SPHERES_SCN).to_scene(cfg.quirks)
         single = np.asarray(jax.jit(
             lambda s, k: render_radiance(s, cfg, k))(scene, jnp.uint32(0)))
         mesh = make_mesh()
@@ -476,13 +210,15 @@ class TestSharded:
 
 class TestPartitionInvariance:
     pytestmark = [pytest.mark.slow]
-    def test_split_ids_bitwise(self, parsed_spheres):
+
+    def test_split_ids_bitwise(self):
         """Radiance is per-ray; any partition of the id space must
         reproduce the identical values (the property device sharding and
         progressive bands are built on)."""
         cfg = RenderConfig(width=16, height=12, monte_carlo=True, num_paths=3,
-                           max_depth=2, use_shadows=True, backend="pallas")
-        scene = parsed_spheres.to_scene(cfg.quirks)
+                           max_depth=2, use_shadows=True, backend="pallas",
+                           interpret=True)
+        scene = parse_scene_text(SPHERES_SCN).to_scene(cfg.quirks)
         n = 16 * 12
         ids = jnp.arange(n, dtype=jnp.uint32)
         whole = np.asarray(
@@ -493,3 +229,76 @@ class TestPartitionInvariance:
             for i in range(0, n, 64)
         ]
         np.testing.assert_array_equal(whole, np.concatenate(parts))
+
+
+class TestDispatch:
+    def test_sphere_count_envelope_gates(self):
+        """Dispatch gates across the sphere-count envelope: unrolled
+        kernel to _UNROLL_SPHERES, fori_loop kernel to MAX_SPHERES, jnp
+        wavefront beyond (the reference's brute force,
+        src/raytrace.h:152-166, silently scales; so must we). Records
+        serve every kernel config whose light bits fit; the
+        >MAX_SPHERES fallback additionally renders (cheap jnp path)."""
+        cfg = RenderConfig(width=8, height=6, monte_carlo=True, num_paths=2,
+                           max_depth=2, use_shadows=True, backend="pallas",
+                           rays_per_chunk=1 << 10)
+        for n, served in ((48, True), (96, True), (300, False)):
+            scene = _many_sphere_scene(n)
+            assert pathtrace.use_pathtrace(scene, cfg) == served, n
+            assert pathtrace._can_replay(scene, cfg), n
+        ids = jnp.arange(8 * 6, dtype=jnp.uint32)
+        r = np.asarray(render_ids_chunked(
+            _many_sphere_scene(300), cfg, jnp.uint32(2), ids))
+        assert np.isfinite(r).all() and r.std() > 0
+
+    def test_gates(self, parsed_test_scene):
+        from conftest import make_mesh_scene
+
+        cfg = RenderConfig(monte_carlo=True, num_paths=2, max_depth=2,
+                           backend="pallas")
+        sph = parse_scene_text(SPHERES_SCN).to_scene(cfg.quirks)
+        assert pathtrace.use_pathtrace(sph, cfg)
+        # jnp backend opts out
+        assert not pathtrace.use_pathtrace(sph, cfg.replace(backend="jnp"))
+        # a few decorative triangles are served in-kernel...
+        tri = parsed_test_scene.to_scene(cfg.quirks)
+        assert pathtrace.use_pathtrace(tri, cfg)
+        # ...but mesh-scale scenes take the XLA triangle scan
+        mesh = make_mesh_scene(t=700)
+        assert not pathtrace.use_pathtrace(mesh, cfg)
+        # the clean Whitted frontier (non-MC, reflections on) is not served
+        clean_whitted = RenderConfig(backend="pallas", quirks=CLEAN)
+        sph_c = parse_scene_text(SPHERES_SCN).to_scene(CLEAN)
+        assert not pathtrace.use_pathtrace(sph_c, clean_whitted)
+
+    @pytest.mark.parametrize("n_fog,served", [(1, True), (2, True),
+                                              (3, False)])
+    def test_fog_volume_gate(self, n_fog, served):
+        """Value-bearing fog is shaded in-kernel up to MAX_FOG volumes;
+        more take the jnp wavefront."""
+        fog = "".join(f"spherical_fog 0 0 0 {60 + i} .9 .8 .7 .02 .01\n"
+                      for i in range(n_fog))
+        scene = parse_scene_text(SPHERES_SCN + fog).to_scene(CLEAN)
+        cfg = RenderConfig(monte_carlo=True, num_paths=2, max_depth=2,
+                           backend="pallas", quirks=CLEAN)
+        assert scene.has_fog and not scene.fog_zeroed
+        assert pathtrace.use_pathtrace(scene, cfg) == served
+
+    @pytest.mark.parametrize("platform,backend", [("gpu", "pallas"),
+                                                  ("cpu", "jnp")])
+    def test_auto_backend_follows_platform(self, monkeypatch, platform,
+                                           backend):
+        """backend="auto" takes the kernel exactly on a GPU."""
+        monkeypatch.setattr(jax, "default_backend", lambda: platform)
+        assert RenderConfig().resolved().backend == backend
+        assert RenderConfig(backend="jnp").resolved().backend == "jnp"
+
+    def test_forced_kernel_off_gpu_raises(self):
+        """backend="pallas" on a platform without the GPU compiler fails
+        loudly unless the interpreter is asked for explicitly."""
+        assert jax.default_backend() != "gpu"
+        scene = parse_scene_text(SPHERES_SCN).to_scene()
+        cfg = RenderConfig(width=8, height=4, backend="pallas")
+        ids = jnp.arange(32, dtype=jnp.uint32)
+        with pytest.raises(ValueError, match="interpret=True"):
+            render_ids_chunked(scene, cfg, jnp.uint32(0), ids)

@@ -18,7 +18,9 @@ from skele_raytracer_tpu.config import CLEAN, PARITY, RenderConfig
 from skele_raytracer_tpu.models.renderer import render_radiance
 from skele_raytracer_tpu.scene.parser import parse_scene
 
-SCENES = sorted(glob.glob("/root/repo/scenes/*.scn"))
+SCENES = sorted(glob.glob(os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "scenes", "*.scn")))
 
 
 @pytest.mark.parametrize("path", SCENES, ids=[os.path.basename(s) for s in SCENES])

@@ -5,9 +5,8 @@ The falsifiable version of the north-star pixel-gradient parity check
 selection the forward made — the per-bounce hit records AND the
 tangent-frame branch bits — and central-difference the differentiable
 replay (ops/pallas/pathtrace._replay_chunked) wrt sphere centres. At
-fixed topology the pixel function is smooth, so the production analytic
-backward (the Pallas backward kernel, whose gradient by construction is
-the gradient of this replay at these records) must match FD allclose.
+fixed topology the pixel function is smooth, so the production backward
+(jax.vjp of this replay at these records) must match FD allclose.
 
 Runs as a SUBPROCESS of bench.py on the CPU backend with x64 enabled:
 f32 finite differences on a frame-sum loss carry ~0.5% rounding noise at
@@ -45,7 +44,7 @@ def main() -> None:
     scene = parse_scene(p["scene"]).to_scene(CLEAN)
     ids = jnp.arange(cfg.height * cfg.width, dtype=jnp.uint32)
     rec = jnp.asarray(data["rec"])
-    ga = np.asarray(data["ga"], np.float64)  # production analytic grad
+    ga = np.asarray(data["ga"], np.float64)  # production backward grad
     seed = jnp.uint32(p["seed"])
 
     # Frame-branch bits at the BASE scene, computed in f32 to match the
